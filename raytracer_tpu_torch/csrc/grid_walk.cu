@@ -24,7 +24,8 @@
 //     the table traffic, and it is exact: a sentinel can never win the fold.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC (kernels/build.py). No
+//        --fmad=false -Xcompiler -fPIC -c, then one -shared link of all
+//        sources (kernels/build.py). No
 // multiply-add contraction: each product and sum below rounds as the plain
 // torch version's separate ops do, in the same order.
 

@@ -2,10 +2,12 @@
 
 Every `*.cu` in `raytracer_tpu_torch/csrc/` compiles into one shared library
 with a plain C interface, at first use, into `raytracer_tpu_torch/_build/`
-(listed in .gitignore). The file name carries a hash of the sources and the
-flags, so an edited kernel rebuilds and a cached library is never stale.
-Nothing here runs at import: importing this module needs neither nvcc nor
-CUDA.
+(listed in .gitignore): one nvcc per source, all started together, then one
+link. The file name carries a hash of the sources and the flags, so an
+edited kernel rebuilds and a cached library is never stale. Each compile
+runs with `-Xptxas -v`; `build_log` keeps the report (registers, spills)
+of the last build. Nothing here runs at import: importing this module needs
+neither nvcc nor CUDA.
 """
 
 import ctypes
@@ -28,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _lib = None  # the loaded library, once built
+build_log = ""  # ptxas report of the last build_library()
 
 
 def _sources():
@@ -54,18 +57,45 @@ def _nvcc() -> str:
 
 
 def build_library() -> tuple[str, float]:
-    """Compile csrc/*.cu with nvcc → (library path, build seconds)."""
+    """Compile csrc/*.cu with nvcc, one process per source, and link them →
+    (library path, build seconds)."""
+    global build_log
     out = library_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    cmds = [[nvcc, *compile_flags, "-Xptxas", "-v", "-c", src, "-o", obj]
+            for src, obj in zip(srcs, objs)]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in cmds]
+    logs = []
+    try:
+        for cmd, proc in jobs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
+    build_log = "".join(logs)
     return out, time.perf_counter() - t0
 
 
@@ -84,5 +114,13 @@ def load_library() -> ctypes.CDLL:
             + [i] * 6                     # n, nx, ny, nz, cap, n_tris
             + [ctypes.c_float, i, i]      # t_min, max_iters, occlusion
             + [p, p, p])                  # t_out, i_out, stream
+        f = ctypes.c_float
+        lib.rt_fused_whitted.restype = i
+        lib.rt_fused_whitted.argtypes = (
+            [p] * 7                       # sph, pln, mat, lgt, stat, ids, cam
+            + [i] * 7                     # ns, np, nt, nm, nl, max_depth, glass
+            + [f] * 5                     # t_min, bias, bg rgb
+            + [i] * 4                     # width, height, row0, rows
+            + [f, p, p, p])               # eps, img, plan, stream
         _lib = lib
     return _lib

@@ -133,11 +133,16 @@ def grid_walk_reference(grid: grid_mod.GridData, table, orig, direc, t_min,
 
 @torch.no_grad()
 def grid_walk_plain(grid: grid_mod.GridData, table, orig, direc, state,
-                    t_min, occlusion_max_t=None):
+                    t_min, occlusion_max_t=None, stats=None):
     """Plain torch walk from a `walk_init` state (the twin of
     `grid_walk_cuda`): the vectorised form of the reference's XLA walk at
     fanout 1, skip 0. Each DDA iteration gathers the [lanes, C, 10] rows of
-    the still-walking lanes only, in chunks of `_REF_CHUNK` lanes."""
+    the still-walking lanes only, in chunks of `_REF_CHUNK` lanes.
+
+    With a `stats` dict, adds the work the kernel does on these rays:
+    "visits" (cell visits of walking lanes) and "candidates" (the non-
+    sentinel slots of the visited cells, which the kernel tests).
+    """
     best_t, best_i, cell, tmax, step, tdelta, act = state
     best_t, best_i = best_t.clone(), best_i.clone()
     cell, tmax = cell.clone(), tmax.clone()
@@ -152,6 +157,10 @@ def grid_walk_plain(grid: grid_mod.GridData, table, orig, direc, state,
             c = cell[idx]
             cid = (c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]
             rows = table[cid]                                  # [n, C, 10]
+            if stats is not None:
+                stats["visits"] = stats.get("visits", 0) + idx.shape[0]
+                stats["candidates"] = stats.get("candidates", 0) + (
+                    rows[..., 9] != grid.n_tris).sum()
             o, d = orig[idx], direc[idx]
             ts, _, _ = geom.triangle_tuv(o[:, None, :], d[:, None, :],
                                          rows[..., 0:3], rows[..., 3:6],

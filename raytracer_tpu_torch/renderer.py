@@ -16,6 +16,8 @@ neighbouring lanes of a walk are neighbouring pixels.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -243,3 +245,42 @@ def render_banded(scene: Scene, camera: Camera, opts: RenderOptions, *,
         imgs.append(img)
         traced = traced + inc
     return torch.cat(imgs), traced
+
+
+def render_ssaa(scene: Scene, camera: Camera, opts: RenderOptions, *,
+                device, factor: int = 2, tracer=None, count_rays: bool = False,
+                band_rows: int | None = None):
+    """Supersampled render → (image [H,W,3], rays_traced): trace a factor×
+    frame through the same projection and box-average factor² subsamples per
+    pixel. The average is taken after the [0,1] clamp, like accumulating
+    clamped castRay results into a big framebuffer.
+
+    `band_rows` is in rows of the output image; on the card a band only
+    bounds memory, so the default is one band of the whole frame.
+    """
+    if factor < 1:
+        raise ValueError(f"ssaa factor must be ≥ 1, got {factor}")
+    hi = dataclasses.replace(opts, width=opts.width * factor,
+                             height=opts.height * factor)
+    band_rows = opts.height if band_rows is None else min(band_rows,
+                                                          opts.height)
+    device = torch.device(device)
+    scene = scene.to(device)
+    camera = camera.to(device)
+    imgs = []
+    traced = torch.zeros((), dtype=torch.float32, device=device)
+    for r0 in range(0, opts.height, band_rows):
+        rb = min(band_rows, opts.height - r0)
+        img, inc = render(scene, camera, hi, device=device,
+                          count_rays=count_rays, tracer=tracer,
+                          row0=r0 * factor, rows=rb * factor)
+        imgs.append(img.reshape(rb, factor, opts.width, factor, 3)
+                    .mean(dim=(1, 3)))
+        traced = traced + inc
+    return torch.cat(imgs), traced
+
+
+def render_image(scene: Scene, camera: Camera, opts: RenderOptions, *,
+                 device, tracer=None):
+    """Convenience: the image alone ([H,W,3] f32 in [0,1] on `device`)."""
+    return render_banded(scene, camera, opts, device=device, tracer=tracer)[0]

@@ -1,9 +1,9 @@
 """Host-side scene/tracer loading for the CLI (counterpart of
 `raytracer_tpu/utils/hostload.py`).
 
-Preset loading with width/height/depth overrides, and the mesh-gated choice
-of the winner-search backend. Scenes build as host numpy dataclasses; the
-tracer is built for an explicit device.
+Preset-vs-scenefile loading with width/height/depth overrides, and the
+mesh-gated choice of the winner-search backend. Scenes build as host numpy
+dataclasses; the tracer is built for an explicit device.
 """
 
 import dataclasses
@@ -16,16 +16,20 @@ _NOT_PORTED = {
     "mat": "ROADMAP queue 1, item 13 / queue 2, K4 (ops/mat_trace.py)",
     "grid-pallas": "nothing: on this card the grid walk IS the CUDA kernel "
                    "(--tracer grid)",
-    "fused": "ROADMAP queue 1, item 6 / queue 2, K1 (ops/fused.py)",
 }
 
 
-def load_scene_cli(config: str, width: int = 0, height: int = 0,
-                   max_depth: int | None = None):
-    """(scene, camera, opts) from a preset name."""
-    from raytracer_tpu_torch.models import presets
+def load_scene_cli(config: str = "", scene_path: str = "", width: int = 0,
+                   height: int = 0, max_depth: int | None = None):
+    """(scene, camera, opts) from a preset name or a scene text file."""
+    if scene_path:
+        from raytracer_tpu_torch.io.scenefile import load_scene
 
-    scene, cam, opts = presets.PRESETS[config]()
+        scene, cam, opts = load_scene(scene_path)
+    else:
+        from raytracer_tpu_torch.models import presets
+
+        scene, cam, opts = presets.PRESETS[config]()
     if width:
         opts = dataclasses.replace(opts, width=width, height=height or width)
     if max_depth is not None:
@@ -36,7 +40,8 @@ def load_scene_cli(config: str, width: int = 0, height: int = 0,
 def build_tracer(scene, kind: str, device):
     """Winner-search backend for `kind` in {auto, none, grid} on `device`;
     None when the scene has no mesh (the dense search covers analytic
-    primitives)."""
+    primitives). The `fused` backend is not built here: it replaces the whole
+    renderer, not the tracer (cli.cmd_render handles it)."""
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"tracer {kind!r} is not ported yet: "
                                   f"{_NOT_PORTED[kind]}")
