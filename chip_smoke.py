@@ -14,15 +14,26 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   config5 128² in param mode after a bind; the config1/config2/config3
   goldens through the fused path; the main path `cli render --tracer fused`
   on config2 1080p d2 and config3 1024² d4, checking that the fused kernel
-  carried it; kernel, plain and wavefront times on those two frames.
+  carried it; kernel, plain and wavefront times on those two frames;
+- fused train kernel (K2): kernel vs plain version (loss and the four
+  gradient tables, on the same plan) at config5 128² (bound off target),
+  config2 1920×1080 d2 and config3 1024² d4, its loss against the L2 of its
+  own forward image, and two runs bit-equal; central differences of two
+  parameters at config2 256² d2 and config3 96² d4; the main path
+  `cli optimize --kernel --steps 30` on config5 128², checking that the loss
+  falls and that it made 30 train and 30 forward launches; kernel, training
+  step (forward + train) and plain times on the two bench frames.
 
-A JSON line lists each kernel's launches on its main path, error, times and
+A JSON line lists each kernel's launches on its main paths, error, times and
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
-or bytes over 3.35 TB/s, whichever is larger). Any failure raises; the last
+or bytes over 3.35 TB/s, whichever is larger, for the work of all the
+frames a kernel's times cover). Any failure raises; the last
 line is `{"ok": true, "device": {...}}` only on success. Exits non-zero
 without a result when no CUDA device is available.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -39,6 +50,10 @@ IMG_TOL, IMG_BAD = 0.004, 0.004  # goldens: ±1/255 class, ≤0.4% bad pixels
 # noise (the reference's own fused tolerance, tests/test_fused.py)
 GLASS_TOL, GLASS_BAD, GLASS_MEAN = 0.01, 0.004, 1e-3
 PX_TOL, PX_BAD = 1.0 / 255.0, 0.001  # fused kernel vs plain: ≤0.1% off >1/255
+# train kernel vs plain: the two sum a frame's pixels in different orders
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3  # loss; × each table's max
+FD_EPS = 3e-4        # central differences (tests/test_fused_vjp.py's step)
+PLAIN_BAND_PX = 1 << 17  # autograd sub-bands of the plain train version
 PEAK_OPS = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
@@ -52,6 +67,21 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 #   reflect/refract: a child ray plus folding its radiance into the parent.
 K1_OPS = {"sphere": 33, "plane": 14, "tri": 46, "pixel": 39, "node": 73,
           "light": 55, "leaf": 6, "reflect": 35, "refract": 56}
+# fp32 operations of the train kernel, counted from csrc/fused_train.cu by
+# the same rules, as (forward, backward) per piece. The function needs one
+# forward and one backward of every live node, so the bound counts a piece
+# as forward + backward (the kernel recomputes the forward in its second
+# sweep, a choice of its own that the bound does not count); pixel:
+# raygen, the loss and dL/drad.
+#   node: hit point and din; their adjoints and the attribute gradients;
+#   sphere/plane/tri: the winner's t recompute and its normal (plane: with
+#   the checker) and their adjoints; light: one light's Phong term of a
+#   diffuse node; diffuse: its combine; fresnel: kr of a mirror/glass node;
+#   reflect/refract: a child ray.
+K2_OPS = {"pixel": 55, "node": (11, 34), "sphere": (40, 131),
+          "plane": (33, 87), "tri": (46, 113), "light": (60, 156),
+          "diffuse": (12, 33), "fresnel": (33, 60), "reflect": (33, 61),
+          "refract": (50, 92)}
 # grid walk: Möller–Trumbore per tested candidate; DDA step per cell visit
 K5_OPS = {"candidate": 46, "visit": 3}
 # walk bytes per ray: orig, dir, cell, tmax, step, tdelta (12 each), active
@@ -346,8 +376,8 @@ def fused_main_path(device):
 
 
 def fused_times(tag, fw, case, device):
-    """Kernel, plain and wavefront times of one full frame → (ms, plain ms,
-    bound ms, bound_by)."""
+    """Kernel, plain and wavefront times of one full frame, and the work
+    the kernel must do there → (ms, plain ms, ops, bytes)."""
     import dataclasses
 
     import torch
@@ -376,7 +406,207 @@ def fused_times(tag, fw, case, device):
           f"bound {b_ms:.4f} ms ({b_by}: {ops:.6g} ops, {nbytes} bytes); "
           f"wavefront render_banded {wf_ms:.3f} ms (tile {tile} rays, "
           f"context only)", flush=True)
-    return ms, plain_ms, b_ms, b_by
+    return ms, plain_ms, ops, nbytes
+
+
+def train_ops(fw, pixels: int, stats) -> float:
+    """Operations of one train launch over `pixels` pixels, with the live
+    nodes of this run's plan (`stats` from the plain version)."""
+    n = lambda k: float(stats.get(k, 0))
+    cost = lambda piece: sum(K2_OPS[piece])
+    hits = n("live_s") + n("live_p") + n("live_t")
+    diffuse = n("live_diffuse")
+    return (pixels * K2_OPS["pixel"] + hits * cost("node")
+            + n("live_s") * cost("sphere") + n("live_p") * cost("plane")
+            + n("live_t") * cost("tri")
+            + diffuse * (cost("diffuse") + fw.counts[4] * cost("light"))
+            + (hits - diffuse) * cost("fresnel")
+            + n("reflect") * cost("reflect") + n("refract") * cost("refract"))
+
+
+def train_bytes(fw, pixels: int, stats) -> float:
+    """Bytes a train launch must move: 8 of plan per live node, 12 of
+    target per pixel, the tables in and their gradients out."""
+    tables = sum(t.numel() for t in (fw.sph, fw.pln, fw.mat, fw.lgt))
+    return 8.0 * float(stats["live"]) + 12.0 * pixels + 8.0 * (tables + 1)
+
+
+def train_case(name, device, w=0, h=0, depth=None):
+    """A param-mode fused object and its target: config5's init bound off
+    target against the goal's image; otherwise 0.9 × its own image."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models import presets
+    from raytracer_tpu_torch.ops import fused as F
+    from raytracer_tpu_torch.utils.hostload import load_scene_cli
+
+    if name == "config5":
+        init, goal, cam, opts = presets.config5_inverse()
+        fw = F.FusedWhitted(init, cam, opts, device=device, param_inputs=True)
+        target = F.FusedWhitted(goal, cam, opts, device=device).render()
+        fw.bind(center=np.asarray(goal.spheres.center) + np.float32(0.05),
+                albedo=np.full((3, 3), 0.4, np.float32))
+        return fw, target.contiguous()
+    scene, cam, opts = load_scene_cli(name, width=w, height=h,
+                                      max_depth=depth)
+    fw = F.FusedWhitted(scene, cam, opts, device=device, param_inputs=True)
+    return fw, (fw.render() * 0.9).contiguous()
+
+
+def train_plain(fw, target, plan, stats=None):
+    from raytracer_tpu_torch.ops import fused as F
+
+    n = fw.n_nodes
+    return F.fused_train_plain(
+        fw, 0, fw.opts.height, plan[:n], plan[n:], target,
+        band_rows=max(1, PLAIN_BAND_PX // fw.opts.width), stats=stats)
+
+
+def train_compare(tag, fw, target):
+    """Train kernel vs plain version on one plan, the kernel's loss against
+    the L2 of its own forward image, and two kernel runs bit for bit →
+    (max |Δ| over the gradient tables, plain ms)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import fused as F
+
+    h = fw.opts.height
+    img, plan = F.fused_whitted_cuda(fw, 0, h, emit_plan=True)
+    got = F.fused_train_cuda(fw, 0, h, plan, target)
+    again = F.fused_train_cuda(fw, 0, h, plan, target)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = train_plain(fw, target, plan)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    own = float(((img.double() - target.double()) ** 2).sum())
+    lk, lp = float(got[0]), float(want[0])
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    errs = {k: rel(got[1][k], want[1][k]) for k in want[1]}
+    radius = rel(got[1]["sph"][:, 3], want[1]["sph"][:, 3])
+    err = max(float((got[1][k] - want[1][k]).abs().max()) for k in want[1])
+    same = torch.equal(got[0], again[0]) and all(
+        torch.equal(got[1][k], again[1][k]) for k in got[1])
+    msg = (f"{tag} ({fw.n_nodes} nodes): loss kernel {lk:.7g}, plain "
+           f"{lp:.7g}, own image {own:.7g}; gradient error / table max "
+           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+           + f" (sphere radii / their max {radius:.2e}); two runs "
+           f"bit-equal: {same}; plain {plain_ms:.1f} ms")
+    print(msg, flush=True)
+    assert all(torch.isfinite(got[1][k]).all() for k in got[1]), msg
+    assert abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), msg
+    assert abs(lk - own) <= TRAIN_LOSS_RTOL * abs(own), msg
+    assert max(errs.values()) <= TRAIN_GRAD_TOL, msg
+    assert same, msg
+    return err, plain_ms
+
+
+def train_fd(tag, fw, target, probes):
+    """Central differences of the forward's own image loss (float64 on the
+    host, the plan re-recorded at each probe) against the train kernel's
+    gradient. Pixels whose plan flips between the probes (silhouettes) are
+    left out of both sides: the kernel gets them as misses."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import fused as F
+
+    h, n = fw.opts.height, fw.n_nodes
+    base = {"center": fw.sph[:fw.counts[0], :3].cpu().numpy().copy(),
+            "albedo": fw.mat[:fw.counts[3], :3].cpu().numpy().copy()}
+    t64 = target.double()
+
+    def frame(params):
+        fw.bind(**params)
+        img, plan = F.fused_whitted_cuda(fw, 0, h, emit_plan=True)
+        return img.double(), plan
+
+    _, plan0 = frame(base)
+    for key, (i, k) in probes:
+        hi = {a: v.copy() for a, v in base.items()}
+        lo = {a: v.copy() for a, v in base.items()}
+        hi[key][i, k] += FD_EPS
+        lo[key][i, k] -= FD_EPS
+        (ih, ph), (il, pl_) = frame(hi), frame(lo)
+        keep = ((ph == plan0) & (pl_ == plan0)).all(dim=0)
+        fd = float((((ih - t64) ** 2 - (il - t64) ** 2).sum(-1)
+                    * keep).sum()) / (2 * FD_EPS)
+        fw.bind(**base)
+        plan = plan0.clone()
+        plan[:n, ~keep] = -1
+        plan[n:, ~keep] = 0
+        _, g = F.fused_train_cuda(fw, 0, h, plan, target)
+        got = float(g["sph" if key == "center" else "mat"][i, k])
+        msg = (f"{tag}: d loss / d {key}[{i}, {k}]: kernel {got:.6g}, "
+               f"central difference {fd:.6g} ({int((~keep).sum())} "
+               "pixels whose plan flips left out)")
+        print(msg, flush=True)
+        assert abs(got - fd) <= 0.05 * abs(fd) + 2e-3, msg
+        assert np.isfinite(got), msg
+    torch.cuda.synchronize()
+
+
+def optimize_main_path():
+    """`cli optimize --kernel --steps 30` on config5 128², after a 2-step
+    warm-up → (forward launches, train launches)."""
+    import torch
+
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.io.image import load_ppm
+    from raytracer_tpu_torch.ops import fused as F
+
+    out_path = os.path.join(OUT, "recovered.ppm")
+    argv = ["optimize", "--kernel", "--steps", "30", "--log-every", "1",
+            "--out", out_path]
+    with contextlib.redirect_stdout(io.StringIO()):  # warm-up, 2 steps
+        cli.main(argv[:2] + ["--steps", "2", "--out", out_path])
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    F.launches = F.train_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k2 = F.launches, F.train_launches
+    text = buf.getvalue()
+    losses = [json.loads(line)["loss"] for line in text.splitlines()
+              if line.startswith('{"step"')]
+    print(text, end="")
+    print(f"main path: cli optimize --kernel --steps 30 (config5 128x128): "
+          f"{dt:.4f} s wall, {k1} forward launches, {k2} train launches; "
+          f"loss step 0 {losses[0]:.6g}, step 9 {losses[9]:.6g}, min "
+          f"{min(losses):.6g}, step 29 {losses[-1]:.6g}", flush=True)
+    assert len(losses) == 30, len(losses)
+    assert losses[9] <= 0.5 * losses[0], losses
+    assert k1 == 30 and k2 == 30, (k1, k2)
+    img = load_ppm(out_path)
+    assert img.shape == (128, 128, 3) and img.std() > 0.01, img.shape
+    return k1, k2
+
+
+def train_times(tag, fw, target):
+    """Kernel and training-step times of one full frame, and the work the
+    train kernel must do there → (ms, step ms, ops, bytes)."""
+    from raytracer_tpu_torch.ops import fused as F
+
+    h, w = fw.opts.height, fw.opts.width
+    _, plan = F.fused_whitted_cuda(fw, 0, h, emit_plan=True)
+    ms = cuda_ms(lambda: F.fused_train_cuda(fw, 0, h, plan, target), 5)
+    step_ms = cuda_ms(lambda: fw.plan_value_and_grad(target), 5)
+    stats = {}
+    train_plain(fw, target, plan, stats=stats)
+    ops, nbytes = train_ops(fw, h * w, stats), train_bytes(fw, h * w, stats)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    counts = ", ".join(f"{k} {int(v)}" for k, v in sorted(stats.items()))
+    print(f"{tag}: train kernel {ms:.3f} ms, training step (forward + train) "
+          f"{step_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {ops:.6g} ops, "
+          f"{nbytes:.6g} bytes; {counts})", flush=True)
+    return ms, step_ms, ops, nbytes
 
 
 def main() -> int:
@@ -470,18 +700,58 @@ def main() -> int:
     _phase("main path: cli render --tracer fused")
     fused_launches = sum(fused_main_path(device).values())
 
+    _phase("fused train kernel vs plain version on the card")
+    train_err = 0.0
+    train_frames = {}
+    for tag, name, w, h, depth in (
+            ("config5 128x128 d0 (bound)", "config5", 0, 0, None),
+            ("config2 1920x1080 d2", "config2", 1920, 1080, 2),
+            ("config3 1024x1024 d4", "config3", 0, 0, None)):
+        fw, target = train_case(name, device, w, h, depth)
+        err_k, p_ms = train_compare(tag, fw, target)
+        train_err = max(train_err, err_k)
+        if name != "config5":
+            train_frames[tag] = (fw, target, p_ms)
+
+    _phase("fused train kernel against central differences")
+    for tag, name, w, h, depth, probes in (
+            ("config2 256x256 d2", "config2", 256, 256, 2,
+             [("albedo", (0, 0)), ("center", (0, 1))]),
+            ("config3 96x96 d4", "config3", 96, 96, 4,
+             [("albedo", (1, 1)), ("center", (1, 0))])):
+        fw, target = train_case(name, device, w, h, depth)
+        train_fd(tag, fw, target, probes)
+
+    _phase("main path: cli optimize --kernel")
+    opt_fwd, train_launches = optimize_main_path()
+
     _phase("fused kernel times")
-    fused_ms = fused_plain_ms = fused_bound = 0.0
-    fused_by = set()
+    fused_ms = fused_plain_ms = fused_ops_n = fused_bytes = 0.0
     for tag, (fw, case) in frames.items():
-        k_ms, p_ms, b_ms, b_by = fused_times(tag, fw, case, device)
+        k_ms, p_ms, ops, nbytes = fused_times(tag, fw, case, device)
         fused_ms += k_ms
         fused_plain_ms += p_ms
-        fused_bound += b_ms
-        fused_by.add(b_by)
+        fused_ops_n += ops
+        fused_bytes += nbytes
+    fused_bound, fused_by = bound_ms(fused_ops_n, fused_bytes)
     print(f"fused kernel over both main-path frames: {fused_ms:.3f} ms, "
-          f"plain {fused_plain_ms:.3f} ms, bound {fused_bound:.4f} ms",
-          flush=True)
+          f"plain {fused_plain_ms:.3f} ms, bound {fused_bound:.4f} ms "
+          f"({fused_by})", flush=True)
+
+    _phase("fused train kernel times")
+    train_ms = train_step_ms = train_plain_ms = train_ops_n = 0.0
+    train_bytes_n = 0.0
+    for tag, (fw, target, p_ms) in train_frames.items():
+        k_ms, s_ms, ops, nbytes = train_times(tag, fw, target)
+        train_ms += k_ms
+        train_step_ms += s_ms
+        train_plain_ms += p_ms
+        train_ops_n += ops
+        train_bytes_n += nbytes
+    train_bound, train_by = bound_ms(train_ops_n, train_bytes_n)
+    print(f"train kernel over both bench frames: {train_ms:.3f} ms, training "
+          f"step {train_step_ms:.3f} ms, plain {train_plain_ms:.3f} ms, bound "
+          f"{train_bound:.4f} ms ({train_by})", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "grid_walk", "route": "cuda",
@@ -493,9 +763,15 @@ def main() -> int:
         "name": "fused_whitted", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_whitted.cu",
         "replaces": "raytracer_tpu/ops/fused.py:326",
-        "launches": fused_launches, "max_abs_err": fused_err,
+        "launches": fused_launches + opt_fwd, "max_abs_err": fused_err,
         "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
-        "bound_by": "/".join(sorted(fused_by)), "library_ms": None}]}))
+        "bound_by": fused_by, "library_ms": None}, {
+        "name": "fused_train", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/fused_train.cu",
+        "replaces": "raytracer_tpu/ops/fused.py:326 (train)",
+        "launches": train_launches, "max_abs_err": train_err,
+        "ms": train_ms, "plain_ms": train_plain_ms, "bound_ms": train_bound,
+        "bound_by": train_by, "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

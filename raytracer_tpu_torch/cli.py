@@ -1,5 +1,5 @@
-"""CLI entry points (counterpart of `raytracer_tpu/cli.py`: `render` and
-`export`).
+"""CLI entry points (counterpart of `raytracer_tpu/cli.py`: `render`,
+`optimize --kernel` and `export`).
 
   python -m raytracer_tpu_torch.cli render --config config4 --out c4.png
   python -m raytracer_tpu_torch.cli render --config config2 --tracer fused \\
@@ -8,6 +8,7 @@
       --device cpu --out c1.ppm
   python -m raytracer_tpu_torch.cli export --config config2 --out my.txt
   python -m raytracer_tpu_torch.cli render --scene my.txt --out my.png
+  python -m raytracer_tpu_torch.cli optimize --kernel --steps 30 --out r.png
 
 `--device` defaults to `cuda`; on a machine without a GPU that fails rather
 than running on the CPU.
@@ -104,6 +105,64 @@ def cmd_render(args):
     _save(args.out, img)
 
 
+def cmd_optimize(args):
+    """Inverse rendering (config5): recover the two spheres' centers and
+    albedos from a target image, one fused training step per iteration —
+    bind the parameters, render the plan, and take the loss and gradients
+    from the train kernel (`FusedWhitted.plan_value_and_grad`) — with Adam.
+    Prints one {"step", "loss"} JSON line per logged step."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models import presets
+    from raytracer_tpu_torch.ops import fused
+    from raytracer_tpu_torch.renderer import render
+
+    if args.preset == "mesh":
+        raise SystemExit("optimize --preset mesh: mesh training (ROADMAP "
+                         "item 10) is not ported yet")
+    if not args.kernel:
+        raise SystemExit("optimize without --kernel: the wavefront autograd "
+                         "trainer (ROADMAP item 5) is not ported yet; pass "
+                         "--kernel for the fused train kernel")
+    device = _device(args.device)
+    init, target, cam, opts = presets.config5_inverse()
+    timg, _ = render(target, cam, opts, device=device)
+    fw = fused.FusedWhitted(init, cam, opts, device=device,
+                            param_inputs=True)
+    n3 = opts.width * opts.height * 3
+    ns = init.spheres.count
+    nm = np.asarray(init.materials.albedo).shape[0]
+    leaf = lambda a: torch.tensor(np.asarray(a, np.float32), device=device,
+                                  requires_grad=True)
+    center, albedo = leaf(init.spheres.center), leaf(init.materials.albedo)
+    opt = torch.optim.Adam([center, albedo],
+                           lr=args.lr if args.lr is not None else 1e-2)
+    for i in range(args.steps):
+        with torch.no_grad():
+            fw.bind(center=center, albedo=albedo.clamp(0.0, 1.0))
+        lsum, g, _ = fw.plan_value_and_grad(timg)
+        # the gradients with respect to the bound values, applied to the
+        # raw parameters (as the reference applies them)
+        center.grad = g["sph"][:ns, 0:3] / n3
+        albedo.grad = g["mat"][:nm, 0:3] / n3
+        opt.step()
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(json.dumps({"step": i, "loss": float(lsum / n3)}))
+    c = center.detach().cpu().numpy()
+    a = albedo.detach().clamp(0.0, 1.0).cpu().numpy()
+    final = init.replace(
+        spheres=dataclasses.replace(init.spheres, center=c),
+        materials=dataclasses.replace(init.materials, albedo=a))
+    img, _ = render(final, cam, opts, device=device)
+    _sync(device)
+    print("recovered centers:\n", c)
+    print("recovered albedos:\n", a)
+    _save(args.out, img.cpu().numpy())
+
+
 def cmd_export(args):
     """Dump a preset as an editable scene text file (render --scene reads it)."""
     from raytracer_tpu_torch.io.scenefile import save_scene
@@ -139,6 +198,24 @@ def main(argv=None):
     pr.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     pr.set_defaults(fn=cmd_render)
+
+    po = sub.add_parser("optimize")
+    po.add_argument("--preset", default="spheres",
+                    choices=["spheres", "mesh"],
+                    help="spheres = config5 (centers + albedos); mesh = "
+                         "config6 (not ported yet)")
+    po.add_argument("--steps", type=int, default=200)
+    po.add_argument("--lr", type=float, default=None,
+                    help="Adam learning rate (default 1e-2)")
+    po.add_argument("--out", default="recovered.png")
+    po.add_argument("--log-every", type=int, default=10)
+    po.add_argument("--kernel", action="store_true",
+                    help="fused training step: the forward kernel records "
+                         "the plan, the train kernel returns the loss and "
+                         "the analytic gradients (the only trainer ported)")
+    po.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda)")
+    po.set_defaults(fn=cmd_optimize)
 
     pe = sub.add_parser("export")
     pe.add_argument("--config", default="config2", choices=_CONFIGS)

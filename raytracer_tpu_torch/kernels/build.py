@@ -122,5 +122,15 @@ def load_library() -> ctypes.CDLL:
             + [f] * 5                     # t_min, bias, bg rgb
             + [i] * 4                     # width, height, row0, rows
             + [f, p, p, p])               # eps, img, plan, stream
-        _lib = lib
+        lib.rt_fused_train_blocks.restype = i
+        lib.rt_fused_train_blocks.argtypes = [i, i]  # width, rows
+        lib.rt_fused_train.restype = i
+        lib.rt_fused_train.argtypes = (
+            [p] * 7                       # sph, pln, mat, lgt, stat, ids, cam
+            + [i] * 4                     # table heights
+            + [i] * 7                     # ns, np, nt, nm, nl, max_depth, glass
+            + [f] * 5                     # t_min, bias, bg rgb
+            + [i] * 4                     # width, height, row0, rows
+            + [f, p, p, p, p, p])         # eps, plan, target, partial, out,
+        _lib = lib                        # stream
     return _lib

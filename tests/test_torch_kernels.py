@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels (grid walk, fused Whitted forward) against
-their plain torch versions.
+"""PyTorch port: the CUDA kernels (grid walk, fused Whitted forward, fused
+train) against their plain torch versions.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the JAX package, so it also runs on a machine that has only
@@ -206,3 +206,95 @@ def test_fused_kernel_bind_between_launches():
     torch.cuda.synchronize()
     assert float((bound - first).abs().max()) > 0.1
     assert torch.equal(bound, want)  # same tables, same kernel: same bits
+
+
+# --- fused train kernel -------------------------------------------------------
+
+# The kernel and autograd sum a band's pixels in different orders: loss to
+# rtol 1e-4, each gradient table within 1e-3 of its largest entry.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+
+
+def _train_case(name, w, h, depth=None, device="cuda"):
+    fw = F.FusedWhitted(*_fused_case(name, w, h, depth), device=device,
+                        param_inputs=True)
+    target = (fw.render() * 0.9).contiguous()
+    return fw, target
+
+
+def assert_train_agree(want, got):
+    (l0, g0), (l1, g1) = want, got
+    np.testing.assert_allclose(float(l1), float(l0), rtol=TRAIN_LOSS_RTOL)
+    for k in ("sph", "pln", "mat", "lgt"):
+        a, b = g0[k].cpu(), g1[k].cpu()
+        assert a.shape == b.shape, k
+        scale = float(a.abs().max()) + 1e-12
+        assert float((a - b).abs().max()) <= TRAIN_GRAD_TOL * scale, k
+
+
+def _train_kernel_and_plain(fw, target, row0=0, rows=None):
+    rows = fw.opts.height - row0 if rows is None else rows
+    img, plan = F.fused_whitted_cuda(fw, row0, rows, emit_plan=True)
+    band = target[row0:row0 + rows].contiguous()
+    before = F.train_launches
+    got = F.fused_train_cuda(fw, row0, rows, plan, band)
+    assert F.train_launches == before + 1
+    n = fw.n_nodes
+    want = F.fused_train_plain(fw, row0, rows, plan[:n], plan[n:], band)
+    torch.cuda.synchronize()
+    own = float(((img.double() - band.double()) ** 2).sum())
+    np.testing.assert_allclose(float(got[0]), own, rtol=TRAIN_LOSS_RTOL)
+    return want, got
+
+
+def test_fused_train_wrapper_rejects_cpu_objects():
+    fw, target = _train_case("config5", 8, 8, device="cpu")
+    _, plan = F.fused_whitted_plain(fw, 0, 8, emit_plan=True)
+    before = F.train_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        F.fused_train_cuda(fw, 0, 8, plan, target)
+    assert F.train_launches == before
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("name,w,h,depth", [("config2", 96, 64, 2),
+                                            ("config3", 64, 64, 4)])
+def test_fused_train_kernel_matches_plain(name, w, h, depth):
+    fw, target = _train_case(name, w, h, depth)
+    assert_train_agree(*_train_kernel_and_plain(fw, target))
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_fused_train_kernel_band_with_row_offset():
+    fw, target = _train_case("config2", 80, 60, 2)
+    assert_train_agree(*_train_kernel_and_plain(fw, target, 17, 23))
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_fused_train_kernel_bind_between_launches():
+    init, goal, cam, opts = presets.config5_inverse()
+    opts = dataclasses.replace(opts, width=64, height=64)
+    target = F.FusedWhitted(goal, cam, opts, device="cuda").render()
+    fw = F.FusedWhitted(init, cam, opts, device="cuda", param_inputs=True)
+    first, _, _ = fw.plan_value_and_grad(target)
+    fw.bind(center=np.asarray(goal.spheres.center) + np.float32(0.03),
+            albedo=goal.materials.albedo)
+    want, got = _train_kernel_and_plain(fw, target.contiguous())
+    assert_train_agree(want, got)
+    assert float(got[0]) < 0.5 * float(first)  # the bound values moved it
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_fused_train_kernel_is_deterministic():
+    fw, target = _train_case("config3", 64, 64, 4)
+    runs = [fw.plan_value_and_grad(target) for _ in range(2)]
+    torch.cuda.synchronize()
+    (l0, g0, _), (l1, g1, _) = runs
+    assert torch.equal(l0, l1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
