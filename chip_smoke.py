@@ -22,7 +22,17 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   parameters at config2 256² d2 and config3 96² d4; the main path
   `cli optimize --kernel --steps 30` on config5 128², checking that the loss
   falls and that it made 30 train and 30 forward launches; kernel, training
-  step (forward + train) and plain times on the two bench frames.
+  step (forward + train) and plain times on the two bench frames;
+- brute-force triangle searches (K3: tri_nearest/tri_occluded, K4:
+  mat_nearest/mat_occluded): kernel vs plain version on config4's 1080p ray
+  sets, the two against each other and against the grid walk kernel; the
+  config4 golden through `--tracer pallas` and `--tracer mat`; the main path
+  `cli render --config config4 --tracer pallas|mat` at 1920×1080, depth 4,
+  checking that all four kernels carried it and that each image matches the
+  grid path's frame; kernel and plain times over one frame's launches.
+
+Before the kernels, raygen's pixel coordinates at 1920×1080 on the card are
+held to the CPU's bit for bit.
 
 A JSON line lists each kernel's launches on its main paths, error, times and
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
@@ -87,6 +97,31 @@ K5_OPS = {"candidate": 46, "visit": 3}
 # walk bytes per ray: orig, dir, cell, tmax, step, tdelta (12 each), active
 # (1), best_t/best_i in (8), t/idx out (8); occlusion adds max_t (4)
 K5_RAY_BYTES, K5_OCCL_BYTES = 89, 4
+# brute-force searches, per ray–triangle test: K3 is the walk's
+# Möller–Trumbore (csrc/tri_trace.cu). K4 counts what the function needs,
+# not the kernel's 76 + 6: build_tri_weights leaves 3 of the 10 weight rows
+# non-zero for det, 6 for u and for v, 4 for t, one of them against the
+# constant feature 1 (an add, no product): det 3 mul + 2 add, u and v 6 + 5
+# each, t 3 + 3, then the epilogue (abs, div, 3 mul, u + v: 6) → 39
+BRUTE_OPS = {"tri": 46, "mat": 39}
+# K4 against another tracer (its search t reassociates MT): hit/miss flips
+# and other winners each on at most this share of rays, and as many
+# occlusion differences (read on an H100 80GB HBM3, 700 W: 1 flip and 2
+# other winners of 2,073,600 primaries, 1 occlusion difference)
+CROSS_MAX = 1e-4
+# ray bytes in and out per launch: K3 reads orig + dir (24), K4 the feature
+# row (64); nearest writes t + idx (8), any-hit reads max_t (4) and writes a
+# bool (1); a mask adds 1
+BRUTE_RAY_IN = {"tri": 24, "mat": 64}
+BRUTE_OUT = {"nearest": 8, "occluded": 5}
+# kernels' JSON names, their wrappers (module, nearest, any-hit), and the
+# TPU kernels they replace
+BRUTE = {"tri": ("raytracer_tpu_torch.ops.pallas_trace", "tri_nearest",
+                 "tri_occluded", "raytracer_tpu_torch/csrc/tri_trace.cu",
+                 "raytracer_tpu/ops/pallas_trace.py", (74, 94)),
+         "mat": ("raytracer_tpu_torch.ops.mat_trace", "mat_nearest",
+                 "mat_occluded", "raytracer_tpu_torch/csrc/mat_trace.cu",
+                 "raytracer_tpu/ops/mat_trace.py", (126, 147))}
 
 
 def _phase(name):
@@ -100,11 +135,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of `fn()` over `reps` runs (after a warm-up)."""
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean device milliseconds of `fn()` over `reps` runs (after a warm-up
+    run unless `warmup` is false)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -243,7 +280,7 @@ def kernel_phase(scene, cam, opts, tracer, device):
     return err, ms, plain_ms, b_ms, b_by
 
 
-def golden_phase(name, w, h, device):
+def golden_phase(name, w, h, device, kind="auto"):
     import dataclasses
 
     import numpy as np
@@ -254,14 +291,14 @@ def golden_phase(name, w, h, device):
 
     scene, cam, opts = load_scene_cli(name)
     opts = dataclasses.replace(opts, width=w, height=h)
-    tracer = build_tracer(scene, "auto", device)
+    tracer = build_tracer(scene, kind, device)
     img, _ = render_banded(scene, cam, opts, device=device, tracer=tracer)
     got = img.cpu().numpy().astype(np.float64)
     want = load_ppm(os.path.join(GOLDEN, f"{name}_{w}x{h}.ppm"))
     diff = np.abs(got - want).max(axis=-1)
     bad = float((diff > IMG_TOL).mean())
-    print(f"golden {name} {w}x{h}: {bad:.4%} pixels > {IMG_TOL} "
-          f"(max {diff.max():.4f})", flush=True)
+    print(f"golden {name} {w}x{h} (tracer {kind}): {bad:.4%} pixels > "
+          f"{IMG_TOL} (max {diff.max():.4f})", flush=True)
     assert bad <= IMG_BAD, f"{name}: {bad:.4%} bad pixels"
 
 
@@ -609,6 +646,263 @@ def train_times(tag, fw, target):
     return ms, step_ms, ops, nbytes
 
 
+def raygen_check(device):
+    """raygen's pixel coordinates at 1920×1080 on the card against the
+    CPU's, bit for bit; and how many whole directions differ (not held:
+    tan and the normalisation may round apart)."""
+    import torch
+
+    from raytracer_tpu_torch.ops.geometry import pixel_coords, raygen
+
+    w, h = 1920, 1080
+    i0, j0 = pixel_coords(w, h, 0, h, "cpu")
+    i1, j1 = pixel_coords(w, h, 0, h, device)
+    di, dj = int((i1.cpu() != i0).sum()), int((j1.cpu() != j0).sum())
+    c2w = torch.eye(3)
+    dirs = (raygen(c2w.to(device), 60.0, w, h).cpu() != raygen(c2w, 60.0, w, h))
+    half = torch.deg2rad(torch.tensor(30.0))
+    tan_same = bool(torch.tan(half.to(device)).cpu() == torch.tan(half))
+    print(f"raygen pixel coordinates {w}x{h}, card vs CPU: {di} of {w} "
+          f"columns and {dj} of {h} rows differ; directions at fov 60: "
+          f"{int(dirs.any(dim=1).sum())} of {w * h} differ (tan(30°) "
+          f"equal: {tan_same})", flush=True)
+    assert di == 0 and dj == 0, "pixel coordinates differ from the CPU's"
+
+
+def brute_search(kind, tracer, o, d, mx, act, t_min, plain=False):
+    """One K3 ("tri") or K4 ("mat") search of a ray set, by the kernel's
+    wrapper or its plain version: nearest when `mx` is None (→ (t, idx)),
+    else any-hit below `mx` (→ bool)."""
+    from raytracer_tpu_torch.ops import mat_trace as MT
+    from raytracer_tpu_torch.ops import pallas_trace as PT
+
+    sfx = "_plain" if plain else "_cuda"
+    if kind == "tri":
+        if mx is None:
+            return getattr(PT, "tri_nearest" + sfx)(o, d, tracer._tri, t_min,
+                                                     act)
+        return getattr(PT, "tri_occluded" + sfx)(o, d, mx, tracer._tri,
+                                                  t_min, act)
+    f = MT.ray_features(o, d, tracer._center)
+    if mx is None:
+        return getattr(MT, "mat_nearest" + sfx)(f, tracer._w, t_min, MT.BT,
+                                                 act)
+    return getattr(MT, "mat_occluded" + sfx)(f, mx, tracer._w, t_min, MT.BT,
+                                              act)
+
+
+def compare_cross(name, ref, got):
+    """Nearest hits of two tracers, one of them K4, whose search t
+    reassociates MT's arithmetic: hit/miss flips and differing winners on
+    ≤CROSS_MAX of rays each (knife edges); where both hit the same
+    triangle, t at rtol 2e-6."""
+    import torch
+
+    (t0, i0), (t1, i1) = ref, got
+    fin0, fin1 = torch.isfinite(t0), torch.isfinite(t1)
+    both = fin0 & fin1
+    same = both & (i0 == i1)
+    flips = int((fin0 != fin1).sum())
+    ids = int((both & (i0 != i1)).sum())
+    dt = (t1[same] - t0[same]).abs() / t0[same].abs().clamp(min=1e-30)
+    rel = float(dt.max()) if dt.numel() else 0.0
+    n = t0.shape[0]
+    msg = (f"{name}: {n} rays, hit/miss flips {flips}, other winner on "
+           f"{ids} hits, max rel dt on the same winner {rel:.3g}")
+    print(msg, flush=True)
+    assert flips <= CROSS_MAX * n and ids <= CROSS_MAX * n, msg
+    assert rel <= T_RTOL, msg
+
+
+def brute_phase(scene, cam, opts, grid_tracer, device):
+    """K3 and K4 vs their plain versions on config4's ray sets at 1920×1080
+    (walk_ray_sets, with their masks, and primary-occl6), against each other
+    and against the walk kernel → {kind: {mode: kernel vs plain: max |Δt|
+    on hits (nearest), lanes that differ (any-hit)}}."""
+    import torch
+
+    from raytracer_tpu_torch.accel.grid import walk_init
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.ops.mat_trace import MatTracer
+    from raytracer_tpu_torch.ops.pallas_trace import PallasTracer
+
+    t_start = time.perf_counter()
+    tracers = {"tri": PallasTracer(scene, device),
+               "mat": MatTracer(scene, device)}
+    sets = walk_ray_sets(scene, cam, opts, grid_tracer, device)
+    sets.append(("primary-occl6", sets[0][1], sets[0][2],
+                 torch.full_like(sets[0][1][:, 0], 6.0), None))
+    err = {k: {"nearest": 0.0, "occluded": 0.0} for k in tracers}
+    grid, table = grid_tracer._grid, grid_tracer._table
+    for name, o, d, mx, act in sets:
+        o, d = o.contiguous(), d.contiguous()
+        walk = W.grid_walk_cuda(grid, table, o, d,
+                                walk_init(grid, o, d, opts.t_min, act),
+                                opts.t_min, mx)
+        lanes = o.shape[0] if act is None else int(act.sum())
+        got = {}
+        for kind, tr in tracers.items():
+            k = brute_search(kind, tr, o, d, mx, act, opts.t_min)
+            p = brute_search(kind, tr, o, d, mx, act, opts.t_min, plain=True)
+            torch.cuda.synchronize()
+            tag = f"{name} ({lanes} live lanes) {kind} kernel vs plain"
+            if mx is None:
+                e = compare_walks(tag, p, k)
+                err[kind]["nearest"] = max(err[kind]["nearest"], e)
+                same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                print(f"  bit-equal: {same}", flush=True)
+                if act is not None:
+                    assert bool(torch.isinf(k[0][~act]).all()), tag
+                    assert bool((k[1][~act] == 0).all()), tag
+            else:
+                diffs = int((k != p).sum())
+                print(f"{tag}: {int(p.sum())} occluded, {diffs} differ",
+                      flush=True)
+                err[kind]["occluded"] = max(err[kind]["occluded"],
+                                            float(diffs))
+                assert diffs == 0, tag
+                if act is not None:
+                    assert not bool(k[~act].any()), f"{tag}: masked lane hit"
+            got[kind] = k
+        if mx is None:  # the three tracers against each other, hits' ids
+            tw, iw = walk
+            walk_hits = (tw, torch.where(torch.isfinite(tw), iw, 0))
+            compare_walks(f"{name} tri kernel vs walk kernel", walk_hits,
+                          got["tri"])
+            fin = tracers["mat"]._finalize(o, d, *got["mat"], opts.t_min)
+            compare_cross(f"{name} mat (finalized) vs tri", got["tri"],
+                          (fin, got["mat"][1]))
+            compare_cross(f"{name} mat (finalized) vs walk", walk_hits,
+                          (fin, got["mat"][1]))
+        else:
+            occ_w = walk[0] < mx
+            d_tri = int((got["tri"] != occ_w).sum())
+            d_mat = int((got["mat"] != occ_w).sum())
+            msg = (f"{name} occlusion vs walk kernel: tri {d_tri}, mat "
+                   f"{d_mat} differ of {o.shape[0]}")
+            print(msg, flush=True)
+            assert d_tri == 0 and d_mat <= CROSS_MAX * o.shape[0], msg
+    print(f"brute-force comparison phase: {time.perf_counter() - t_start:.1f} "
+          "s", flush=True)
+    return err
+
+
+@contextlib.contextmanager
+def recording(mod, names):
+    """Record the arguments of every call of `mod`'s kernel wrappers
+    `names` (as the dispatchers call them), to replay a frame's launches."""
+    calls = {n: [] for n in names}
+    saved = {n: getattr(mod, n) for n in names}
+
+    def recorder(n):
+        def call(*args):
+            calls[n].append(args)
+            return saved[n](*args)
+        return call
+
+    for n in names:
+        setattr(mod, n, recorder(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+
+
+def brute_main_path(grid_img):
+    """`cli render --config config4 --tracer pallas|mat` at 1920×1080, depth
+    4, in-process, after a warm-up whose kernel launches are recorded; each
+    image against the grid path's frame → ({kind: (nearest launches, any-hit
+    launches)}, {kind: recorded calls})."""
+    import importlib
+    import re
+
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.io.image import load_ppm, to_u8
+
+    os.makedirs(OUT, exist_ok=True)
+    want = to_u8(grid_img) / 255.0
+    launches, calls = {}, {}
+    for kind, cli_kind in (("tri", "pallas"), ("mat", "mat")):
+        mod = importlib.import_module(BRUTE[kind][0])
+        near, occ = BRUTE[kind][1] + "_cuda", BRUTE[kind][2] + "_cuda"
+        out = os.path.join(OUT, f"config4_{cli_kind}.ppm")
+        argv = ["render", "--config", "config4", "--tracer", cli_kind,
+                "--out", out]
+        with recording(mod, (near, occ)) as rec, \
+                contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv)  # warm-up
+        torch.cuda.synchronize()
+        os.remove(out)
+        buf = io.StringIO()
+        mod.launches = mod.occluded_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[kind] = (mod.launches, mod.occluded_launches)
+        text = buf.getvalue()
+        print(text, end="")
+        rays = float(re.search(r"— (\S+) rays", text).group(1))
+        got = load_ppm(out)
+        assert got.shape == want.shape, got.shape
+        bad_px = int((np.abs(got - want).max(axis=-1) > IMG_TOL).sum())
+        bad = bad_px / (got.shape[0] * got.shape[1])
+        msg = (f"main path: cli render config4 1920x1080 d4 --tracer "
+               f"{cli_kind}: {dt:.4f} s wall (image written), {rays:.6g} "
+               f"rays, {rays / dt:.6g} rays/s; {launches[kind][0]} nearest, "
+               f"{launches[kind][1]} any-hit launches; vs the grid path's "
+               f"frame {bad_px} pixels ({bad:.4%}) off by > {IMG_TOL}")
+        print(msg, flush=True)
+        assert min(launches[kind]) > 0, f"{msg}: a kernel never launched"
+        assert bad <= IMG_BAD, msg
+        calls[kind] = rec
+    return launches, calls
+
+
+def brute_times(kind, calls):
+    """Kernel and plain times over one frame's recorded launches, and the
+    bound from the work they need → {mode: (ms, plain ms, bound ms, by)}."""
+    import importlib
+
+    mod = importlib.import_module(BRUTE[kind][0])
+    res = {}
+    for mode, name in (("nearest", BRUTE[kind][1]),
+                       ("occluded", BRUTE[kind][2])):
+        args = calls[name + "_cuda"]
+        kern, plain = getattr(mod, name + "_cuda"), getattr(mod, name + "_plain")
+        ms = cuda_ms(lambda: [kern(*a) for a in args], 3)
+        plain_ms = cuda_ms(lambda: [plain(*a) for a in args], 1,
+                           warmup=False)
+        tests = nbytes = lanes = 0
+        stats = {}
+        for a in args:  # the table is the 3rd (tri) / 4th (mat) from last
+            table, act, n = a[-3 if kind == "tri" else -4], a[-1], a[0].shape[0]
+            tp = table.shape[1] // (1 if kind == "tri" else 4)
+            live = n if act is None else int(act.sum())
+            lanes += live
+            if mode == "nearest":
+                tests += live * tp
+            else:
+                plain(*a, stats=stats)
+            nbytes += table.numel() * 4 + n * (
+                BRUTE_RAY_IN[kind] + BRUTE_OUT[mode] + (act is not None))
+        tests = stats.get("tests", tests)
+        ops = BRUTE_OPS[kind] * float(tests)
+        b_ms, b_by = bound_ms(ops, nbytes)
+        print(f"{name}: {len(args)} launches of one config4 1080p d4 frame, "
+              f"{lanes} live lanes, {tests:.6g} ray-triangle tests: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.1f} ms; {ops:.6g} ops, "
+              f"{nbytes:.6g} bytes → bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        res[mode] = (ms, plain_ms, b_ms, b_by)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -638,6 +932,9 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(line.strip())
+
+    _phase("raygen on the card")
+    raygen_check(device)
 
     _phase("kernel vs plain version, config4 rays at 1920x1080")
     scene, cam, opts = load_scene_cli("config4")
@@ -675,6 +972,21 @@ def main() -> int:
     assert tuple(img.shape) == (opts.height, opts.width, 3), img.shape
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+
+    _phase("brute-force kernels (K3, K4) vs plain versions, config4 rays at "
+           "1920x1080")
+    brute_err = brute_phase(scene, cam, opts, tracer, device)
+
+    _phase("goldens on the card through --tracer pallas and --tracer mat")
+    golden_phase("config4", 192, 108, device, "pallas")
+    golden_phase("config4", 192, 108, device, "mat")
+
+    _phase("main path: cli render --config config4 --tracer pallas|mat")
+    brute_launches, brute_calls = brute_main_path(img)
+
+    _phase("brute-force kernel times")
+    brute_t = {kind: brute_times(kind, brute_calls[kind]) for kind in BRUTE}
+    del brute_calls
 
     _phase("fused kernel vs plain version on the card")
     fused_err = 0.0
@@ -771,7 +1083,15 @@ def main() -> int:
         "replaces": "raytracer_tpu/ops/fused.py:326 (train)",
         "launches": train_launches, "max_abs_err": train_err,
         "ms": train_ms, "plain_ms": train_plain_ms, "bound_ms": train_bound,
-        "bound_by": train_by, "library_ms": None}]}))
+        "bound_by": train_by, "library_ms": None}] + [{
+        "name": BRUTE[kind][1 + m], "route": "cuda", "source": BRUTE[kind][3],
+        "replaces": f"{BRUTE[kind][4]}:{BRUTE[kind][5][m]}",
+        "launches": brute_launches[kind][m],
+        "max_abs_err": brute_err[kind][mode], "ms": brute_t[kind][mode][0],
+        "plain_ms": brute_t[kind][mode][1],
+        "bound_ms": brute_t[kind][mode][2],
+        "bound_by": brute_t[kind][mode][3], "library_ms": None}
+        for kind in BRUTE for m, mode in enumerate(("nearest", "occluded"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.types import KIND_TRIANGLE, Meshes, Scene
+from raytracer_tpu_torch.core.types import Meshes, Scene
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import trace as trace_ops
 
@@ -220,12 +220,7 @@ class GridTracer:
         base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
         tb, ib = grid_walk(self._grid, self._table, orig, direc, t_min,
                            active=active)
-        # strict <: exact-t ties go to spheres and planes
-        better = tb < base.t
-        return trace_ops.Hit(
-            kind=torch.where(better, KIND_TRIANGLE, base.kind),
-            idx=torch.where(better, ib, base.idx),
-            t=torch.where(better, tb, base.t))
+        return trace_ops.merge_triangles(base, tb, ib)
 
     @torch.no_grad()
     def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):

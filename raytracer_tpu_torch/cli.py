@@ -187,11 +187,15 @@ def main(argv=None):
     pr.add_argument("--height", type=int, default=0)
     pr.add_argument("--max-depth", type=int, default=None)
     pr.add_argument("--tracer", default="auto",
-                    choices=["auto", "none", "grid", "fused"],
+                    choices=["auto", "none", "grid", "pallas", "mat",
+                             "fused"],
                     help="mesh winner-search backend (auto = grid when the "
-                         "scene has triangles; none = dense search; fused = "
-                         "the single-kernel forward for scenes without big "
-                         "meshes, glass included)")
+                         "scene has triangles; none = dense search; pallas = "
+                         "brute-force kernel over all triangles "
+                         "(ops/pallas_trace.py); mat = linear-expansion "
+                         "sweep over all triangles (ops/mat_trace.py); "
+                         "fused = the single-kernel forward for scenes "
+                         "without big meshes, glass included)")
     pr.add_argument("--ssaa", type=int, default=1,
                     help="supersampling factor: trace an N× frame and "
                          "box-average N² subsamples per pixel")

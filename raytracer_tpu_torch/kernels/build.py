@@ -132,5 +132,63 @@ def load_library() -> ctypes.CDLL:
             + [f] * 5                     # t_min, bias, bg rgb
             + [i] * 4                     # width, height, row0, rows
             + [f, p, p, p, p, p])         # eps, plan, target, partial, out,
-        _lib = lib                        # stream
+                                          # stream
+        lib.rt_tri_trace.restype = i
+        lib.rt_tri_trace.argtypes = (
+            [p] * 5                       # orig, dir, max_t, active, tris
+            + [i, i, f, i]                # n, tp, t_min, occlusion
+            + [p] * 4)                    # t_out, i_out, occ_out, stream
+        lib.rt_mat_trace.restype = i
+        lib.rt_mat_trace.argtypes = (
+            [p] * 4                       # feats, max_t, active, weights
+            + [i, i, i, f, i]             # n, tp, bt, t_min, occlusion
+            + [p] * 4)                    # t_out, i_out, occ_out, stream
+        _lib = lib
     return _lib
+
+
+def check_arg(name, x, dtype, shape, device):
+    """Raise ValueError unless `x` is a contiguous `dtype` tensor of `shape`
+    on `device`: what a kernel's C entry takes."""
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} is {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch_search(entry, rays, max_t, active, table, sizes, t_min):
+    """Launch the brute-force search kernel of C entry `entry` (rt_tri_trace
+    or rt_mat_trace) on the current stream: nearest when `max_t` is None,
+    else any-hit below `max_t`. `rays` (the per-ray tensors) and `table`
+    are checked by the caller; `sizes` are the entry's int arguments after
+    the ray count. Checks `max_t` and `active`, allocates the outputs and
+    raises on a refused launch → (occluded bool [N] or (t [N] f32, idx [N]
+    i32), whether a kernel was launched)."""
+    import torch
+
+    n, dev = rays[0].shape[0], rays[0].device
+    if active is not None:
+        check_arg("active", active, torch.bool, (n,), dev)
+    occl = max_t is not None
+    if occl:
+        check_arg("max_t", max_t, torch.float32, (n,), dev)
+        outs = (None, None, torch.empty((n,), dtype=torch.bool, device=dev))
+    else:
+        outs = (torch.empty((n,), dtype=torch.float32, device=dev),
+                torch.empty((n,), dtype=torch.int32, device=dev), None)
+    result = outs[2] if occl else outs[:2]
+    if n == 0:
+        return result, False
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = getattr(load_library(), entry)(
+        *(ptr(x) for x in (*rays, max_t, active, table)), n, *sizes,
+        float(t_min), int(occl), *(ptr(x) for x in outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    return result, True

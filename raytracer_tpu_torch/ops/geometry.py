@@ -136,6 +136,23 @@ def spawn_origin(p, n, out_dir, bias):
     return p + side[..., None] * bias * n
 
 
+def pixel_coords(width: int, height: int, row0: int, rows: int, device):
+    """Normalised pixel centres of a band → (i [width], j [rows]) f32:
+    (k + 0.5) / width and (k + row0 + 0.5) / height.
+
+    The divisors are device tensors: torch on CUDA divides by a Python
+    number as a product with its rounded reciprocal, an ulp off the true
+    quotient unless the divisor is a power of two; a tensor divisor gives
+    the quotient on every device.
+    """
+    f32 = torch.float32
+    w = torch.tensor(float(width), dtype=f32, device=device)
+    h = torch.tensor(float(height), dtype=f32, device=device)
+    i = (torch.arange(width, dtype=f32, device=device) + 0.5) / w
+    j = (torch.arange(rows, dtype=f32, device=device) + float(row0) + 0.5) / h
+    return i, j
+
+
 def raygen(c2w, fov_deg, width, height, row0: int = 0,
            rows: int | None = None):
     """Camera ray directions, row-major → [rows·width, 3] f32 on c2w's device.
@@ -149,8 +166,7 @@ def raygen(c2w, fov_deg, width, height, row0: int = 0,
     fov = torch.as_tensor(fov_deg, dtype=f32, device=dev)
     scale = torch.tan(torch.deg2rad(fov / 2.0))
     aspect = float(np.float32(width) / np.float32(height))
-    i = (torch.arange(width, dtype=f32, device=dev) + 0.5) / width
-    j = (torch.arange(rows, dtype=f32, device=dev) + float(row0) + 0.5) / height
+    i, j = pixel_coords(width, height, row0, rows, dev)
     x = (2.0 * i - 1.0) * aspect * scale                 # [W]
     y = (1.0 - 2.0 * j) * scale                          # [rows]
     xx = x[None, :].expand(rows, width)

@@ -56,6 +56,14 @@ def _merge(best_t, kind, idx, tb, ib, k):
             torch.where(better, ib.to(torch.int32), idx))
 
 
+def merge_triangles(base: Hit, tb, ib) -> Hit:
+    """A tracer's triangle winners (tb, ib) merged into the dense search's
+    sphere/plane hits `base`; strict <, so exact-t ties go to spheres and
+    planes."""
+    t, kind, idx = _merge(base.t, base.kind, base.idx, tb, ib, KIND_TRIANGLE)
+    return Hit(kind=kind, idx=idx, t=t)
+
+
 @torch.no_grad()
 def nearest_hit(scene: Scene, orig, direc, t_min: float, tri_chunk: int,
                 active=None) -> Hit:

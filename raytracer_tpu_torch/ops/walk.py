@@ -15,6 +15,7 @@ noise (rtol 2e-6) and winner ids match except on knife edges.
 import torch
 
 from raytracer_tpu_torch.accel import grid as grid_mod
+from raytracer_tpu_torch.kernels.build import check_arg
 from raytracer_tpu_torch.ops import geometry as geom
 
 # Kernel launches since the last reset. Incremented only where the kernel
@@ -65,18 +66,6 @@ def grid_walk(grid: grid_mod.GridData, table, orig, direc, t_min,
                           occlusion_max_t)
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} is {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def grid_walk_cuda(grid, table, orig, direc, state, t_min,
                    occlusion_max_t=None):
     """Launch the CUDA kernel on the current stream from a `walk_init` state.
@@ -100,10 +89,10 @@ def grid_walk_cuda(grid, table, orig, direc, state, t_min,
             ("active", act, torch.bool, (n,)), ("best_t", best_t, f32, (n,)),
             ("best_i", best_i, i32, (n,)),
             ("table", table, f32, (nx * ny * nz, grid.capacity, 10))):
-        _check(name, x, dt, shape, dev)
+        check_arg(name, x, dt, shape, dev)
     occl = occlusion_max_t is not None
     if occl:
-        _check("occlusion_max_t", occlusion_max_t, f32, (n,), dev)
+        check_arg("occlusion_max_t", occlusion_max_t, f32, (n,), dev)
     t_out = torch.empty((n,), dtype=f32, device=dev)
     i_out = torch.empty((n,), dtype=i32, device=dev)
     if n == 0:

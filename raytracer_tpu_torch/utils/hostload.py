@@ -12,8 +12,6 @@ import dataclasses
 # the ROADMAP item that ports each
 _NOT_PORTED = {
     "bvh": "ROADMAP queue 1, item 13 (accel/bvh.py)",
-    "pallas": "ROADMAP queue 1, item 13 / queue 2, K3 (ops/pallas_trace.py)",
-    "mat": "ROADMAP queue 1, item 13 / queue 2, K4 (ops/mat_trace.py)",
     "grid-pallas": "nothing: on this card the grid walk IS the CUDA kernel "
                    "(--tracer grid)",
 }
@@ -38,17 +36,25 @@ def load_scene_cli(config: str = "", scene_path: str = "", width: int = 0,
 
 
 def build_tracer(scene, kind: str, device):
-    """Winner-search backend for `kind` in {auto, none, grid} on `device`;
-    None when the scene has no mesh (the dense search covers analytic
-    primitives). The `fused` backend is not built here: it replaces the whole
-    renderer, not the tracer (cli.cmd_render handles it)."""
+    """Winner-search backend for `kind` in {auto, none, grid, pallas, mat}
+    on `device`; None when the scene has no mesh (the dense search covers
+    analytic primitives). The `fused` backend is not built here: it replaces
+    the whole renderer, not the tracer (cli.cmd_render handles it)."""
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"tracer {kind!r} is not ported yet: "
                                   f"{_NOT_PORTED[kind]}")
-    if kind not in ("auto", "none", "grid"):
+    if kind not in ("auto", "none", "grid", "pallas", "mat"):
         raise ValueError(f"unknown tracer kind: {kind!r}")
     if not scene.meshes.count or kind == "none":
         return None
+    if kind == "pallas":
+        from raytracer_tpu_torch.ops.pallas_trace import PallasTracer
+
+        return PallasTracer(scene, device)
+    if kind == "mat":
+        from raytracer_tpu_torch.ops.mat_trace import MatTracer
+
+        return MatTracer.build(scene, device)
     from raytracer_tpu_torch.accel.grid import GridTracer
 
     return GridTracer.build(scene, device)

@@ -1,5 +1,6 @@
 """PyTorch port: the CUDA kernels (grid walk, fused Whitted forward, fused
-train) against their plain torch versions.
+train, the brute-force triangle searches) against their plain torch
+versions, and raygen's pixel coordinates on the card against the CPU's.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the JAX package, so it also runs on a machine that has only
@@ -17,8 +18,10 @@ import torch
 from raytracer_tpu_torch.accel.grid import GridTracer, walk_init
 from raytracer_tpu_torch.models import presets
 from raytracer_tpu_torch.ops import fused as F
+from raytracer_tpu_torch.ops import mat_trace as MT
+from raytracer_tpu_torch.ops import pallas_trace as PT
 from raytracer_tpu_torch.ops import walk as W
-from raytracer_tpu_torch.ops.geometry import raygen
+from raytracer_tpu_torch.ops.geometry import pixel_coords, raygen
 
 torch.set_num_threads(2)
 
@@ -298,3 +301,136 @@ def test_fused_train_kernel_is_deterministic():
     assert torch.equal(l0, l1)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
+
+
+# --- brute-force triangle search (K3: tri_trace.cu, K4: mat_trace.cu) --------
+
+MODULES = {"tri": PT, "mat": MT}
+
+
+def _brute_launch(kind, case, max_t=None, active=None, plain=False):
+    """One nearest (max_t None) or any-hit search of the case's rays, by
+    the kernel or its plain version."""
+    pt, mt, orig, dirs, opts = case
+    if kind == "tri":
+        if max_t is None:
+            fn = PT.tri_nearest_plain if plain else PT.tri_nearest_cuda
+            return fn(orig, dirs, pt._tri, opts.t_min, active)
+        fn = PT.tri_occluded_plain if plain else PT.tri_occluded_cuda
+        return fn(orig, dirs, max_t, pt._tri, opts.t_min, active)
+    feats = MT.ray_features(orig, dirs, mt._center)
+    if max_t is None:
+        fn = MT.mat_nearest_plain if plain else MT.mat_nearest_cuda
+        return fn(feats, mt._w, opts.t_min, active=active)
+    fn = MT.mat_occluded_plain if plain else MT.mat_occluded_cuda
+    return fn(feats, max_t, mt._w, opts.t_min, active=active)
+
+
+def test_brute_kernel_wrappers_reject_cpu_tensors():
+    scene, cam, opts = presets.config4_mesh()
+    orig, dirs = _rays(cam, "cpu", 8, 4)
+    case = (PT.PallasTracer(scene, "cpu"), MT.MatTracer(scene, "cpu"), orig,
+            dirs, opts)
+    before = [(m.launches, m.occluded_launches) for m in MODULES.values()]
+    for kind in MODULES:
+        for max_t in (None, torch.full((32,), 6.0)):
+            with pytest.raises(ValueError, match="CUDA"):
+                _brute_launch(kind, case, max_t)
+    assert [(m.launches, m.occluded_launches)
+            for m in MODULES.values()] == before
+
+
+@pytest.fixture(scope="module")
+def brute_case():
+    """config4's blob (20,480 triangles) and 256×160 primaries less 77, a
+    ray count that is not a multiple of the kernels' 256-thread block."""
+    scene, cam, opts = presets.config4_mesh()
+    orig, dirs = _rays(cam, "cuda")
+    return (PT.PallasTracer(scene, "cuda"), MT.MatTracer(scene, "cuda"),
+            orig[:-77].contiguous(), dirs[:-77].contiguous(), opts)
+
+
+def _mask(n, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand(n, generator=gen) > 0.3).to("cuda")
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("kind", ["tri", "mat"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_brute_nearest_kernel_matches_plain(brute_case, kind, masked):
+    act = _mask(brute_case[2].shape[0]) if masked else None
+    mod = MODULES[kind]
+    before = mod.launches
+    t1, i1 = _brute_launch(kind, brute_case, active=act)
+    assert mod.launches == before + 1
+    t0, i0 = _brute_launch(kind, brute_case, active=act, plain=True)
+    torch.cuda.synchronize()
+    assert_walks_agree(t0.cpu(), i0.cpu(), t1.cpu(), i1.cpu())
+    assert int(torch.isfinite(t0).sum()) > 1000  # scene sanity
+    if masked:
+        assert bool(torch.isinf(t1[~act]).all())
+        assert bool((i1[~act] == 0).all())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("kind", ["tri", "mat"])
+@pytest.mark.parametrize("max_t", [4.0, 6.0, 100.0])
+def test_brute_occluded_kernel_matches_plain(brute_case, kind, max_t):
+    n = brute_case[2].shape[0]
+    act = _mask(n, seed=6)
+    mx = torch.full((n,), max_t, device="cuda")
+    mod = MODULES[kind]
+    before = mod.occluded_launches
+    got = _brute_launch(kind, brute_case, mx, act)
+    assert mod.occluded_launches == before + 1
+    want = _brute_launch(kind, brute_case, mx, act, plain=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool
+    assert torch.equal(got, want)
+    assert not bool(got[~act].any())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_brute_kernel_wrappers_reject_bad_inputs(brute_case):
+    pt, mt, orig, dirs, opts = brute_case
+    t_min, n = opts.t_min, orig.shape[0]
+    mx = torch.full((n,), 6.0, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        PT.tri_nearest_cuda(orig, dirs.t().contiguous().t(), pt._tri, t_min)
+    with pytest.raises(ValueError, match="float32"):
+        PT.tri_nearest_cuda(orig.double(), dirs, pt._tri, t_min)
+    with pytest.raises(ValueError, match="shape"):
+        PT.tri_nearest_cuda(orig, dirs, pt._tri[:8], t_min)
+    with pytest.raises(ValueError, match="shape"):
+        PT.tri_occluded_cuda(orig, dirs, mx[:-1], pt._tri, t_min)
+    with pytest.raises(ValueError, match="bool"):
+        PT.tri_nearest_cuda(orig, dirs, pt._tri, t_min,
+                            torch.ones((n,), dtype=torch.int32, device="cuda"))
+    feats = MT.ray_features(orig, dirs, mt._center)
+    with pytest.raises(ValueError, match="contiguous"):
+        MT.mat_nearest_cuda(feats.t().contiguous().t(), mt._w, t_min)
+    with pytest.raises(ValueError, match="float32"):
+        MT.mat_occluded_cuda(feats, mx.double(), mt._w, t_min)
+    with pytest.raises(ValueError, match="shape"):
+        MT.mat_nearest_cuda(feats[:, :10].contiguous(), mt._w, t_min)
+    with pytest.raises(ValueError, match="blocks"):
+        MT.mat_nearest_cuda(feats, mt._w, t_min, bt=3000)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_raygen_pixel_coords_equal_cpu():
+    """At 1920×1080 the pixel coordinates on the card equal the CPU's bit
+    for bit. Dividing by the width as a Python number, as raygen did, gives
+    the product with the rounded reciprocal on the card: an ulp off."""
+    w, h, f32 = 1920, 1080, torch.float32
+    old = (torch.arange(w, dtype=f32, device="cuda") + 0.5) / w
+    assert not torch.equal(old.cpu(), (torch.arange(w, dtype=f32) + 0.5) / w)
+    for row0, rows in ((0, h), (517, 100)):
+        i0, j0 = pixel_coords(w, h, row0, rows, "cpu")
+        i1, j1 = pixel_coords(w, h, row0, rows, "cuda")
+        assert torch.equal(i1.cpu(), i0) and torch.equal(j1.cpu(), j0)

@@ -13,22 +13,28 @@ import torch
 from raytracer_tpu_torch.core.types import RenderOptions, scene_from_arrays
 
 
-def subdiv3_config4():
-    """Reference config4 with the subdiv-3 bumpy sphere in place of the blob
-    (as tests/test_pallas_walk.py builds it), at 64×40, depth 2."""
+def bumpy_config4(subdiv: int, width: int, height: int):
+    """Reference config4 with a bumpy sphere of `subdiv` in place of the
+    blob (as tests/test_pallas.py and tests/test_pallas_walk.py build it),
+    at width×height, depth 2, one tile."""
     from raytracer_tpu.core.types import Meshes
     from raytracer_tpu.io import meshgen
     from raytracer_tpu.models import presets
 
     scene, cam, opts = presets.config4_mesh(use_obj=False)
-    verts, tris = meshgen.bumpy_sphere(subdiv=3, radius=1.3)
+    verts, tris = meshgen.bumpy_sphere(subdiv=subdiv, radius=1.3)
     verts = verts + np.array([0.0, -0.1, -5.5], np.float32)
     scene = scene.replace(meshes=Meshes.build(
         verts, tris, np.zeros((tris.shape[0],), np.int32),
         normals=meshgen.vertex_normals(verts, tris)))
-    opts = dataclasses.replace(opts, width=64, height=40, max_depth=2,
-                               tile_rays=2560, tile_block=None)
+    opts = dataclasses.replace(opts, width=width, height=height, max_depth=2,
+                               tile_rays=width * height, tile_block=None)
     return scene, cam, opts
+
+
+def subdiv3_config4():
+    """`bumpy_config4` at subdiv 3, 64×40 (tests/test_pallas_walk.py's)."""
+    return bumpy_config4(3, 64, 40)
 
 
 def port(scene, cam, opts):
