@@ -9,20 +9,29 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   the config4 and config7 goldens on the card, and the main path
   (load_scene_cli → build_tracer("auto") → render_banded) on config4 at
   1920×1080, depth 4, checking that the walk kernel carried it;
-- fused Whitted forward (K1): kernel vs plain version (image and plan
-  planes) on config2 1920×1080 d2, config3 1024² d4 (glass, 31 nodes) and
-  config5 128² in param mode after a bind; the config1/config2/config3
-  goldens through the fused path; the main path `cli render --tracer fused`
-  on config2 1080p d2 and config3 1024² d4, checking that the fused kernel
-  carried it; kernel, plain and wavefront times on those two frames;
+- fused Whitted forward (K1), in its three modes (image: the live nodes
+  only; live plan; full plan): the full plan vs the plain version (image
+  and plan planes) on config1 256², config2 1920×1080 d2, config3 1024² d4
+  (glass, 31 nodes) and config5 128² in param mode after a bind, and on
+  each of them the image mode's and the live plan's image equal to the full
+  plan's; the config1/config2/config3 goldens through the fused path; the
+  main paths `cli render --tracer fused` (image mode) and
+  `FusedWhitted.render_plan` (full plan) on config2 1080p d2 and config3
+  1024² d4, checking that each mode carried its path; each mode's time and
+  bound on those two frames, and plain and wavefront times;
 - fused train kernel (K2): kernel vs plain version (loss and the four
-  gradient tables, on the same plan) at config5 128² (bound off target),
-  config2 1920×1080 d2 and config3 1024² d4, its loss against the L2 of its
-  own forward image, and two runs bit-equal; central differences of two
-  parameters at config2 256² d2 and config3 96² d4; the main path
-  `cli optimize --kernel --steps 30` on config5 128², checking that the loss
-  falls and that it made 30 train and 30 forward launches; kernel, training
-  step (forward + train) and plain times on the two bench frames;
+  gradient tables, on the same full plan) at config5 128² (bound off
+  target), config2 1920×1080 d2 and config3 1024² d4, its loss against the
+  L2 of its own forward image, two runs bit-equal, and the training step on
+  the live plan (`plan_value_and_grad`) bit-equal to the step on the full
+  plan; a 30-sphere scene of 345 table floats (two gradient windows) and
+  glass-free max_depth 40 (config2 256², and config2 between two mirror
+  planes, whose chains pass the kernels' on-chip levels), K1 and K2 against
+  the plain versions; central differences of two parameters at config2
+  256² d2 and config3 96² d4; the main path `cli optimize --kernel --steps
+  30` on config5 128², checking that the loss falls and that it made 30
+  train and 30 live-plan launches; kernel, training step (live plan +
+  train) and plain times on the two bench frames;
 - brute-force triangle searches (K3: tri_nearest/tri_occluded, K4:
   mat_nearest/mat_occluded): kernel vs plain version on config4's 1080p ray
   sets, the two against each other and against the grid walk kernel; the
@@ -37,7 +46,8 @@ held to the CPU's bit for bit.
 A JSON line lists each kernel's launches on its main paths, error, times and
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
 or bytes over 3.35 TB/s, whichever is larger, for the work of all the
-frames a kernel's times cover). Any failure raises; the last
+frames a kernel's times cover); K1 has one entry per mode. Any failure
+raises; the last
 line is `{"ok": true, "device": {...}}` only on success. Exits non-zero
 without a result when no CUDA device is available.
 """
@@ -73,10 +83,13 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 #   sphere/plane/tri: one intersection test; pixel: raygen + final clamp;
 #   node: hit point, winner attributes (counted as a sphere's normal),
 #   din, shadow origin, Phong combine, fresnel;
-#   light: per-light shading less its shadow sweep; leaf: w·bg;
+#   light_dir: the direction and distance to one light (a shadow sweep's
+#   ray); phong: the rest of one light's Phong term; leaf: w·bg;
 #   reflect/refract: a child ray plus folding its radiance into the parent.
 K1_OPS = {"sphere": 33, "plane": 14, "tri": 46, "pixel": 39, "node": 73,
-          "light": 55, "leaf": 6, "reflect": 35, "refract": 56}
+          "light_dir": 15, "phong": 40, "leaf": 6, "reflect": 35,
+          "refract": 56}
+K1_MODES = ("image", "live_plan", "plan")
 # fp32 operations of the train kernel, counted from csrc/fused_train.cu by
 # the same rules, as (forward, backward) per piece. The function needs one
 # forward and one backward of every live node, so the bound counts a piece
@@ -302,23 +315,46 @@ def golden_phase(name, w, h, device, kind="auto"):
     assert bad <= IMG_BAD, f"{name}: {bad:.4%} bad pixels"
 
 
-def fused_ops(fw, pixels: int, stats) -> float:
-    """Operations of one fused render of `pixels` pixels: every pixel
-    evaluates every node; shadow sweeps counted as the plain version saw
-    the kernel's early exits (`stats`)."""
+def k1_work(fw, pixels: int, stats, mode: str):
+    """Operations and bytes one K1 launch in `mode` needs over `pixels`
+    pixels, from the plain version's search-mode counts of this frame
+    (`stats`, see ops/fused._tree; each shadow sweep stops at its first
+    occluder, as the kernel's does):
+    - image: the live nodes' searches, their hits' shading and child rays,
+      the diffuse hits' lights and the sweeps toward the lights in front of
+      them; 12 B of RGB per pixel;
+    - live_plan: the same, plus the sweeps toward the lights at the tie
+      ldn = 0 (the train kernel reads those bits); 8 B per live node more;
+    - plan: every node's search, sweeps and child rays, Phong on the live
+      diffuse nodes only; 8 B per node more."""
     ns, np_, nt, _, nl = fw.counts
-    n = fw.n_nodes
-    leaves = (1 << fw.opts.max_depth) if fw.has_glass else 1
-    child = K1_OPS["reflect"] + (K1_OPS["refract"] if fw.has_glass else 0)
+    n = lambda k: float(stats.get(k, 0))
     search = (K1_OPS["sphere"] * ns + K1_OPS["plane"] * np_
               + K1_OPS["tri"] * nt)
-    per_px = (K1_OPS["pixel"] + n * (search + K1_OPS["node"]
-                                     + nl * K1_OPS["light"])
-              + leaves * K1_OPS["leaf"] + (n - leaves) * child)
-    shadow = sum(K1_OPS[kind] * float(stats.get("shadow_" + k, 0))
-                 for k, kind in (("s", "sphere"), ("p", "plane"),
-                                 ("t", "tri")))
-    return pixels * per_px + shadow
+    sweeps = lambda pre: sum(K1_OPS[kind] * n(pre + "shadow_" + k)
+                             for k, kind in (("s", "sphere"), ("p", "plane"),
+                                             ("t", "tri")))
+    phong = n("live_diffuse") * nl * K1_OPS["phong"]
+    if mode == "plan":
+        nodes = float(fw.n_nodes * pixels)
+        leaves = pixels * float((1 << fw.opts.max_depth) if fw.has_glass
+                                else 1)
+        child = K1_OPS["reflect"] + (K1_OPS["refract"] if fw.has_glass
+                                     else 0)
+        ops = (nodes * (search + K1_OPS["node"] + nl * K1_OPS["light_dir"])
+               + sweeps("") + phong + leaves * K1_OPS["leaf"]
+               + (nodes - leaves) * child)
+        return pixels * K1_OPS["pixel"] + ops, 12.0 * pixels + 8.0 * nodes
+    hits = n("live_s") + n("live_p") + n("live_t")
+    ops = (pixels * K1_OPS["pixel"] + n("live") * search
+           + hits * K1_OPS["node"] + phong + n("live_leaf") * K1_OPS["leaf"]
+           + n("reflect") * K1_OPS["reflect"]
+           + n("refract") * K1_OPS["refract"])
+    if mode == "image":
+        ops += n("live_diffuse") * nl * K1_OPS["light_dir"] + sweeps("lit_")
+        return ops, 12.0 * pixels
+    ops += n("live_diffuse") * nl * K1_OPS["light_dir"] + sweeps("live_")
+    return ops, 12.0 * pixels + 8.0 * n("live")
 
 
 def fused_case(name, device, w=0, h=0, depth=None):
@@ -330,8 +366,10 @@ def fused_case(name, device, w=0, h=0, depth=None):
     return F.FusedWhitted(scene, cam, opts, device=device), (scene, cam, opts)
 
 
-def fused_compare(name, fw) -> float:
-    """Kernel vs plain render_plan on the card → max |Δ| of the image."""
+def fused_compare(name, fw) -> dict:
+    """The full plan vs the plain render_plan on the card, and the image
+    and live-plan modes' images equal to the full plan's → {mode: max |Δ|
+    of its image against the plain version's}."""
     import torch
 
     from raytracer_tpu_torch.ops import fused as F
@@ -339,6 +377,8 @@ def fused_compare(name, fw) -> float:
     h, w, n = fw.opts.height, fw.opts.width, fw.n_nodes
     img, wins, occs = fw.render_plan()
     want, plan = F.fused_whitted_plain(fw, 0, h, emit_plan=True)
+    image = fw.render()
+    live = F.fused_whitted_cuda(fw, 0, h, mode="live_plan")[0]
     torch.cuda.synchronize()
     assert tuple(img.shape) == (h, w, 3) and len(wins) == len(occs) == n
     assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
@@ -347,13 +387,18 @@ def fused_compare(name, fw) -> float:
     err = float(diff.max())
     win = max(float((a != b).float().mean()) for a, b in zip(wins, plan[:n]))
     occ = max(float((a != b).float().mean()) for a, b in zip(occs, plan[n:]))
-    msg = (f"{name} {w}x{h} d{fw.opts.max_depth} ({n} nodes): "
+    # torch.equal compares values: the sign of a zero does not count
+    same = torch.equal(image, img), torch.equal(live, img)
+    msg = (f"{name} {w}x{h} d{fw.opts.max_depth} ({n} nodes): full plan "
            f"{bad:.5%} pixels off >1/255, max |d| {err:.3g}, worst win "
-           f"plane {win:.5%}, worst occ plane {occ:.5%}")
+           f"plane {win:.5%}, worst occ plane {occ:.5%}; image mode and live "
+           f"plan equal to the full plan's image: {same[0]}, {same[1]}")
     print(msg, flush=True)
     assert bad <= PX_BAD, msg
     assert win <= ID_MAX_DIFF and occ <= ID_MAX_DIFF, msg
-    return err
+    assert all(same), msg
+    return {"image": float((image - want).abs().max()),
+            "live_plan": float((live - want).abs().max()), "plan": err}
 
 
 def fused_golden(name, w, h, device, tol, max_bad, max_mean=None):
@@ -377,7 +422,7 @@ def fused_golden(name, w, h, device, tol, max_bad, max_mean=None):
 
 def fused_main_path(device):
     """`cli render --tracer fused` on config2 1080p d2 and config3 1024² d4,
-    in-process → {frame: launches}."""
+    in-process → {frame: image-mode launches}."""
     import torch
 
     from raytracer_tpu_torch import cli
@@ -397,24 +442,54 @@ def fused_main_path(device):
     torch.cuda.synchronize()
     launches = {}
     for tag, (h, w), argv in runs:
-        F.launches = 0
+        F.launches = F.live_plan_launches = F.plan_launches = 0
         t0 = time.perf_counter()
         cli.main(argv)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches[tag] = F.launches
         print(f"main path: cli render {tag} --tracer fused: {dt:.4f} s wall "
-              f"(image written), {F.launches} fused launches", flush=True)
+              f"(image written), {F.launches} image-mode launches", flush=True)
         assert F.launches > 0, f"{tag}: the fused kernel never launched"
+        assert F.live_plan_launches == F.plan_launches == 0, tag
         img = load_ppm(argv[-1])
         assert img.shape == (h, w, 3), img.shape
         assert img.std() > 0.01, f"{tag}: a flat image"
     return launches
 
 
+def plan_main_path(frames):
+    """`FusedWhitted.render_plan()` on the main-path frames (config2 1080p
+    d2, config3 1024² d4), after a warm-up → full-plan launches."""
+    import torch
+
+    from raytracer_tpu_torch.ops import fused as F
+
+    for fw, _ in frames.values():
+        fw.render_plan()
+    torch.cuda.synchronize()
+    F.launches = F.live_plan_launches = F.plan_launches = 0
+    for tag, (fw, _) in frames.items():
+        t0 = time.perf_counter()
+        img, wins, occs = fw.render_plan()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"main path: FusedWhitted.render_plan() {tag}: {dt * 1e3:.3f} "
+              f"ms wall, {len(wins)} win and {len(occs)} occ planes",
+              flush=True)
+        assert float(img.std()) > 0.01, f"{tag}: a flat image"
+    launches = F.plan_launches
+    print(f"main path: {launches} full-plan launches", flush=True)
+    assert launches == len(frames) and F.launches == 0, launches
+    return launches
+
+
 def fused_times(tag, fw, case, device):
-    """Kernel, plain and wavefront times of one full frame, and the work
-    the kernel must do there → (ms, plain ms, ops, bytes)."""
+    """Each K1 mode's time on one full frame (the mean of two readings, the
+    modes timed in turn forward, then backward, so that none is always
+    first), the plain version's and the wavefront's times, and the work
+    each mode must do there → ({mode: (ms, ops, bytes)}, {mode: plain
+    ms})."""
     import dataclasses
 
     import torch
@@ -423,13 +498,19 @@ def fused_times(tag, fw, case, device):
     from raytracer_tpu_torch.renderer import render_banded
 
     h, w = fw.opts.height, fw.opts.width
-    ms = cuda_ms(fw.render, 5)
-    plain_ms = cuda_ms(lambda: F.fused_whitted_plain(fw, 0, h), 1)
     stats = {}
     F.fused_whitted_plain(fw, 0, h, stats=stats)
-    ops = fused_ops(fw, h * w, stats)
-    nbytes = 12 * h * w  # the RGB written once; the scene is a few KB
-    b_ms, b_by = bound_ms(ops, nbytes)
+    torch.cuda.synchronize()
+    reads = {mode: [] for mode in K1_MODES}
+    for order in (K1_MODES, K1_MODES[::-1]):
+        for mode in order:
+            reads[mode].append(cuda_ms(
+                lambda: F.fused_whitted_cuda(fw, 0, h, mode=mode), 5))
+    res = {mode: (sum(reads[mode]) / 2, *k1_work(fw, h * w, stats, mode))
+           for mode in K1_MODES}
+    plain = {"image": cuda_ms(lambda: F.fused_whitted_plain(fw, 0, h), 1)}
+    plain["live_plan"] = plain["plan"] = cuda_ms(
+        lambda: F.fused_whitted_plain(fw, 0, h, emit_plan=True), 1)
     scene, cam, opts = case
     tile = min(h * w, 1 << 18) if scene.has_glass else h * w
     wopts = dataclasses.replace(opts, tile_rays=tile, tile_block=None)
@@ -439,11 +520,19 @@ def fused_times(tag, fw, case, device):
     render_banded(scene, cam, wopts, device=device)
     torch.cuda.synchronize()
     wf_ms = (time.perf_counter() - t0) * 1e3
-    print(f"{tag}: fused kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}: {ops:.6g} ops, {nbytes} bytes); "
-          f"wavefront render_banded {wf_ms:.3f} ms (tile {tile} rays, "
-          f"context only)", flush=True)
-    return ms, plain_ms, ops, nbytes
+    counts = ", ".join(f"{k} {int(v)}" for k, v in sorted(stats.items()))
+    print(f"{tag} ({fw.n_nodes} nodes per pixel; {counts}):", flush=True)
+    for mode in K1_MODES:
+        ms, ops, nbytes = res[mode]
+        b_ms, b_by = bound_ms(ops, nbytes)
+        print(f"  {mode}: kernel {ms:.4f} ms (forward, backward order: "
+              f"{reads[mode][0]:.4f}, {reads[mode][1]:.4f}), bound "
+              f"{b_ms:.4f} ms ({b_by}: "
+              f"{ops:.6g} ops, {nbytes:.6g} bytes), {b_ms / ms:.1%} of bound;"
+              f" plain {plain[mode]:.3f} ms", flush=True)
+    print(f"  wavefront render_banded {wf_ms:.3f} ms (tile {tile} rays, "
+          "context only)", flush=True)
+    return res, plain
 
 
 def train_ops(fw, pixels: int, stats) -> float:
@@ -508,9 +597,12 @@ def train_compare(tag, fw, target):
     from raytracer_tpu_torch.ops import fused as F
 
     h = fw.opts.height
-    img, plan = F.fused_whitted_cuda(fw, 0, h, emit_plan=True)
+    img, plan = F.fused_whitted_cuda(fw, 0, h, mode="plan")
+    before = F.train_launches
     got = F.fused_train_cuda(fw, 0, h, plan, target)
+    launches = F.train_launches - before
     again = F.fused_train_cuda(fw, 0, h, plan, target)
+    step = fw.plan_value_and_grad(target)  # the live plan, then K2
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     want = train_plain(fw, target, plan)
@@ -528,18 +620,68 @@ def train_compare(tag, fw, target):
     err = max(float((got[1][k] - want[1][k]).abs().max()) for k in want[1])
     same = torch.equal(got[0], again[0]) and all(
         torch.equal(got[1][k], again[1][k]) for k in got[1])
-    msg = (f"{tag} ({fw.n_nodes} nodes): loss kernel {lk:.7g}, plain "
-           f"{lp:.7g}, own image {own:.7g}; gradient error / table max "
+    live = (torch.equal(step[0], got[0]) and torch.equal(step[2], img)
+            and all(torch.equal(step[1][k], got[1][k]) for k in got[1]))
+    msg = (f"{tag} ({fw.n_nodes} nodes, {launches} train launches): loss "
+           f"kernel {lk:.7g}, plain {lp:.7g}, own image {own:.7g}; gradient "
+           "error / table max "
            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
            + f" (sphere radii / their max {radius:.2e}); two runs "
-           f"bit-equal: {same}; plain {plain_ms:.1f} ms")
+           f"bit-equal: {same}; the live-plan step bit-equal to the "
+           f"full-plan step: {live}; plain {plain_ms:.1f} ms")
     print(msg, flush=True)
     assert all(torch.isfinite(got[1][k]).all() for k in got[1]), msg
     assert abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), msg
     assert abs(lk - own) <= TRAIN_LOSS_RTOL * abs(own), msg
     assert max(errs.values()) <= TRAIN_GRAD_TOL, msg
-    assert same, msg
+    assert same and live, msg
+    assert launches == len(F.grad_windows((fw.sph, fw.pln, fw.mat, fw.lgt))), msg
     return err, plain_ms
+
+
+def limit_case(name, device):
+    """A param-mode fused object past the kernels' old limits and its target
+    (0.9 × its own image): "spheres", 30 spheres of 345 table floats at
+    256×192 d2; "config2" at 256² d40; "mirror_hall", config2 between two
+    mirror planes at 256² d40, where most chains reach depth 40."""
+    from raytracer_tpu_torch.models import presets
+    from raytracer_tpu_torch.ops import fused as F
+    from raytracer_tpu_torch.utils.hostload import load_scene_cli
+
+    if name == "spheres":
+        case = presets.many_spheres(30, 256, 192)
+    elif name == "mirror_hall":
+        case = presets.mirror_hall(256, 256, 40)
+    else:
+        case = load_scene_cli(name, width=256, height=256, max_depth=40)
+    fw = F.FusedWhitted(*case, device=device, param_inputs=True)
+    return fw, (fw.render() * 0.9).contiguous()
+
+
+def repairs_phase(device):
+    """K2 over 345 table floats (two gradient windows), and K1 (full plan,
+    image, live plan) and K2 at glass-free max_depth 40, against the plain
+    versions → (K1 errors by mode, K2 error)."""
+    from raytracer_tpu_torch.ops import fused as F
+
+    fw, target = limit_case("spheres", device)
+    n_grads = sum(t.numel() for t in (fw.sph, fw.pln, fw.mat, fw.lgt))
+    assert n_grads == 345 > F.TRAIN_GRAD_WINDOW, n_grads
+    k2_err, _ = train_compare(f"30 spheres, {n_grads} table floats, 256x192 "
+                              "d2", fw, target)
+    k1_err = {m: 0.0 for m in K1_MODES}
+    for name in ("config2", "mirror_hall"):
+        fw, target = limit_case(name, device)
+        for m, e in fused_compare(f"{name} d40", fw).items():
+            k1_err[m] = max(k1_err[m], e)
+        k2_err = max(k2_err, train_compare(f"{name} 256x256 d40", fw,
+                                           target)[0])
+        stats = {}
+        F.fused_whitted_plain(fw, 0, 256, stats=stats)
+        print(f"{name} d40: {int(stats['live'])} live nodes, "
+              f"{int(stats['live_leaf'])} live hits at depth 40, of "
+              f"{256 * 256} pixels", flush=True)
+    return k1_err, k2_err
 
 
 def train_fd(tag, fw, target, probes):
@@ -559,7 +701,7 @@ def train_fd(tag, fw, target, probes):
 
     def frame(params):
         fw.bind(**params)
-        img, plan = F.fused_whitted_cuda(fw, 0, h, emit_plan=True)
+        img, plan = F.fused_whitted_cuda(fw, 0, h, mode="plan")
         return img.double(), plan
 
     _, plan0 = frame(base)
@@ -589,7 +731,7 @@ def train_fd(tag, fw, target, probes):
 
 def optimize_main_path():
     """`cli optimize --kernel --steps 30` on config5 128², after a 2-step
-    warm-up → (forward launches, train launches)."""
+    warm-up → (live-plan launches, train launches)."""
     import torch
 
     from raytracer_tpu_torch import cli
@@ -603,24 +745,25 @@ def optimize_main_path():
         cli.main(argv[:2] + ["--steps", "2", "--out", out_path])
     torch.cuda.synchronize()
     buf = io.StringIO()
-    F.launches = F.train_launches = 0
+    F.launches = F.live_plan_launches = F.plan_launches = 0
+    F.train_launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli.main(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    k1, k2 = F.launches, F.train_launches
+    k1, k2 = F.live_plan_launches, F.train_launches
     text = buf.getvalue()
     losses = [json.loads(line)["loss"] for line in text.splitlines()
               if line.startswith('{"step"')]
     print(text, end="")
     print(f"main path: cli optimize --kernel --steps 30 (config5 128x128): "
-          f"{dt:.4f} s wall, {k1} forward launches, {k2} train launches; "
+          f"{dt:.4f} s wall, {k1} live-plan launches, {k2} train launches; "
           f"loss step 0 {losses[0]:.6g}, step 9 {losses[9]:.6g}, min "
           f"{min(losses):.6g}, step 29 {losses[-1]:.6g}", flush=True)
     assert len(losses) == 30, len(losses)
     assert losses[9] <= 0.5 * losses[0], losses
-    assert k1 == 30 and k2 == 30, (k1, k2)
+    assert k1 == 30 and k2 == 30 and F.plan_launches == 0, (k1, k2)
     img = load_ppm(out_path)
     assert img.shape == (128, 128, 3) and img.std() > 0.01, img.shape
     return k1, k2
@@ -628,21 +771,27 @@ def optimize_main_path():
 
 def train_times(tag, fw, target):
     """Kernel and training-step times of one full frame, and the work the
-    train kernel must do there → (ms, step ms, ops, bytes)."""
+    train kernel must do there → (ms, step ms, ops, bytes). The step is
+    `plan_value_and_grad` (the live plan, then K2); the step on the full
+    plan (render_plan's K1, then K2) is timed beside it."""
     from raytracer_tpu_torch.ops import fused as F
 
     h, w = fw.opts.height, fw.opts.width
-    _, plan = F.fused_whitted_cuda(fw, 0, h, emit_plan=True)
+    _, plan = F.fused_whitted_cuda(fw, 0, h, mode="live_plan")
     ms = cuda_ms(lambda: F.fused_train_cuda(fw, 0, h, plan, target), 5)
     step_ms = cuda_ms(lambda: fw.plan_value_and_grad(target), 5)
-    stats = {}
-    train_plain(fw, target, plan, stats=stats)
+    full_ms = cuda_ms(lambda: F.fused_train_cuda(
+        fw, 0, h, F.fused_whitted_cuda(fw, 0, h, mode="plan")[1], target), 5)
+    stats = {}  # the plain replay reads every node: the full plan
+    train_plain(fw, target, F.fused_whitted_cuda(fw, 0, h, mode="plan")[1],
+                stats=stats)
     ops, nbytes = train_ops(fw, h * w, stats), train_bytes(fw, h * w, stats)
     b_ms, b_by = bound_ms(ops, nbytes)
     counts = ", ".join(f"{k} {int(v)}" for k, v in sorted(stats.items()))
-    print(f"{tag}: train kernel {ms:.3f} ms, training step (forward + train) "
-          f"{step_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {ops:.6g} ops, "
-          f"{nbytes:.6g} bytes; {counts})", flush=True)
+    print(f"{tag}: train kernel {ms:.4f} ms, training step (live plan + "
+          f"train) {step_ms:.4f} ms, on the full plan {full_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}: {ops:.6g} ops, {nbytes:.6g} bytes; "
+          f"{counts})", flush=True)
     return ms, step_ms, ops, nbytes
 
 
@@ -989,28 +1138,38 @@ def main() -> int:
     del brute_calls
 
     _phase("fused kernel vs plain version on the card")
-    fused_err = 0.0
+    fused_err = {m: 0.0 for m in K1_MODES}
+
+    def worst(errs):
+        for m, e in errs.items():
+            fused_err[m] = max(fused_err[m], e)
+
     frames = {}
     for tag, name, w, h, depth in (
+            ("config1 256x256 d0", "config1", 256, 256, None),
             ("config2 1920x1080 d2", "config2", 1920, 1080, 2),
             ("config3 1024x1024 d4", "config3", 0, 0, None)):
         fw, case = fused_case(name, device, w, h, depth)
-        fused_err = max(fused_err, fused_compare(name, fw))
-        frames[tag] = (fw, case)
+        worst(fused_compare(name, fw))
+        if name != "config1":
+            frames[tag] = (fw, case)
     init, target, cam5, opts5 = presets.config5_inverse()
     fw5 = F.FusedWhitted(init, cam5, opts5, device=device, param_inputs=True)
     first = fw5.render()
     fw5.bind(center=target.spheres.center, albedo=target.materials.albedo)
     assert float((fw5.render() - first).abs().max()) > 0.1, "bind moved nothing"
-    fused_err = max(fused_err, fused_compare("config5 (bound)", fw5))
+    worst(fused_compare("config5 (bound)", fw5))
 
     _phase("goldens on the card through the fused path")
     fused_golden("config1", 256, 256, device, IMG_TOL, IMG_BAD)
     fused_golden("config2", 256, 256, device, IMG_TOL, IMG_BAD)
     fused_golden("config3", 96, 96, device, GLASS_TOL, GLASS_BAD, GLASS_MEAN)
 
-    _phase("main path: cli render --tracer fused")
-    fused_launches = sum(fused_main_path(device).values())
+    _phase("main path: cli render --tracer fused (image mode)")
+    k1_launches = {"image": sum(fused_main_path(device).values())}
+
+    _phase("main path: FusedWhitted.render_plan (full plan)")
+    k1_launches["plan"] = plan_main_path(frames)
 
     _phase("fused train kernel vs plain version on the card")
     train_err = 0.0
@@ -1025,6 +1184,11 @@ def main() -> int:
         if name != "config5":
             train_frames[tag] = (fw, target, p_ms)
 
+    _phase("repairs: 345 table floats; glass-free max_depth 40")
+    deep_err, err_k = repairs_phase(device)
+    worst(deep_err)
+    train_err = max(train_err, err_k)
+
     _phase("fused train kernel against central differences")
     for tag, name, w, h, depth, probes in (
             ("config2 256x256 d2", "config2", 256, 256, 2,
@@ -1035,20 +1199,24 @@ def main() -> int:
         train_fd(tag, fw, target, probes)
 
     _phase("main path: cli optimize --kernel")
-    opt_fwd, train_launches = optimize_main_path()
+    k1_launches["live_plan"], train_launches = optimize_main_path()
 
     _phase("fused kernel times")
-    fused_ms = fused_plain_ms = fused_ops_n = fused_bytes = 0.0
+    k1 = {m: {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0}
+          for m in K1_MODES}
     for tag, (fw, case) in frames.items():
-        k_ms, p_ms, ops, nbytes = fused_times(tag, fw, case, device)
-        fused_ms += k_ms
-        fused_plain_ms += p_ms
-        fused_ops_n += ops
-        fused_bytes += nbytes
-    fused_bound, fused_by = bound_ms(fused_ops_n, fused_bytes)
-    print(f"fused kernel over both main-path frames: {fused_ms:.3f} ms, "
-          f"plain {fused_plain_ms:.3f} ms, bound {fused_bound:.4f} ms "
-          f"({fused_by})", flush=True)
+        res, plain = fused_times(tag, fw, case, device)
+        for m in K1_MODES:
+            for key, v in zip(("ms", "ops", "bytes"), res[m]):
+                k1[m][key] += v
+            k1[m]["plain_ms"] += plain[m]
+    for m in K1_MODES:
+        k1[m]["bound_ms"], k1[m]["bound_by"] = bound_ms(k1[m]["ops"],
+                                                        k1[m]["bytes"])
+        print(f"fused kernel, {m}, over both main-path frames: "
+              f"{k1[m]['ms']:.4f} ms, plain {k1[m]['plain_ms']:.3f} ms, "
+              f"bound {k1[m]['bound_ms']:.4f} ms ({k1[m]['bound_by']}), "
+              f"{k1[m]['bound_ms'] / k1[m]['ms']:.1%} of bound", flush=True)
 
     _phase("fused train kernel times")
     train_ms = train_step_ms = train_plain_ms = train_ops_n = 0.0
@@ -1061,8 +1229,8 @@ def main() -> int:
         train_ops_n += ops
         train_bytes_n += nbytes
     train_bound, train_by = bound_ms(train_ops_n, train_bytes_n)
-    print(f"train kernel over both bench frames: {train_ms:.3f} ms, training "
-          f"step {train_step_ms:.3f} ms, plain {train_plain_ms:.3f} ms, bound "
+    print(f"train kernel over both bench frames: {train_ms:.4f} ms, training "
+          f"step {train_step_ms:.4f} ms, plain {train_plain_ms:.3f} ms, bound "
           f"{train_bound:.4f} ms ({train_by})", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1071,13 +1239,15 @@ def main() -> int:
         "replaces": "raytracer_tpu/ops/pallas_walk.py:111",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": walk_bound, "bound_by": walk_by,
-        "library_ms": None}, {
-        "name": "fused_whitted", "route": "cuda",
+        "library_ms": None}] + [{
+        "name": "fused_whitted" + ("" if m == "image" else "_" + m),
+        "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_whitted.cu",
         "replaces": "raytracer_tpu/ops/fused.py:326",
-        "launches": fused_launches + opt_fwd, "max_abs_err": fused_err,
-        "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
-        "bound_by": fused_by, "library_ms": None}, {
+        "launches": k1_launches[m], "max_abs_err": fused_err[m],
+        "ms": k1[m]["ms"], "plain_ms": k1[m]["plain_ms"],
+        "bound_ms": k1[m]["bound_ms"], "bound_by": k1[m]["bound_by"],
+        "library_ms": None} for m in K1_MODES] + [{
         "name": "fused_train", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_train.cu",
         "replaces": "raytracer_tpu/ops/fused.py:326 (train)",

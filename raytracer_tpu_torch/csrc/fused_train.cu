@@ -18,6 +18,11 @@
 // gradients: max/min and clip send half to each side when the operands are
 // equal, |x| has slope 1 at 0.
 //
+// One launch accumulates one window of at most kGradWindow table floats (an
+// offset and a count, whole table rows): the wrapper launches once per
+// window, so no table size is refused, and each launch replays the whole
+// tree. The loss comes from the first window's launch.
+//
 // Per pixel, two sweeps over the node store (one slot per tree node, indexed
 // as the plan: node (depth b, path p) at 2^b − 1 + p with glass, b without):
 //   1. top-down in node order: evaluate each live node (a node is live when
@@ -34,18 +39,20 @@
 //      the node's own incoming-ray adjoint in its slot for the parent. The
 //      eye ray depends on no table, so the root's adjoint is dropped.
 // Dead nodes (weight 0 through a structural zero) contribute exactly 0 to the
-// loss and the gradients, and are skipped.
+// loss and the gradients, and are skipped; their plan entries are never read
+// (the forward's live-plan mode leaves them unwritten). Without glass a
+// node's children form a chain, so the live nodes are a prefix: a count.
 //
 // What bounds it on this card: neither its bytes nor its arithmetic come
 // near the card's rates. A pixel reads 8 bytes per live plan node and 12 of
-// target, and writes nothing but its share of a [n_blocks, 1 + G] partial
-// (G = the tables' floats); the work is one intersection recompute, the
-// shading and the fresnel/ray algebra per live node, forward and backward.
-// The node store (12 floats per node: 63 nodes with glass, 32 without) and
-// the G gradient accumulators are indexed at run time, so they live in
-// local memory (L1/L2-cached): ptxas -v (CUDA 12.8, sm_90a) gives 94
-// registers and a 2,448-byte stack frame without glass, 122 and 4,056 bytes
-// with glass, no spills. Not tuned: a first kernel that is right.
+// target, and writes nothing but its share of a [n_blocks, 1 + window]
+// partial; the work is one intersection recompute, the shading and the
+// fresnel/ray algebra per live node, forward and backward. The node store
+// (12 floats per node: 63 nodes with glass, kChainLevels without; deeper
+// chain nodes in a scratch buffer the wrapper allocates, [nodes, 12,
+// pixels]) and the window's gradient accumulators are indexed at run time,
+// so they live in local memory (L1/L2-cached). Not tuned: a first kernel that
+// is right.
 //
 // Build: as fused_whitted.cu (kernels/build.py; --fmad=false).
 
@@ -57,7 +64,7 @@ constexpr int kTrainBlockX = 32;
 constexpr int kTrainBlockY = 4;
 constexpr int kTrainThreads = kTrainBlockX * kTrainBlockY;
 constexpr int kTrainWarps = kTrainThreads / 32;
-constexpr int kMaxGrads = 256;  // TRAIN_MAX_GRADS
+constexpr int kGradWindow = 256;  // table floats accumulated per launch
 constexpr int kReduceThreads = 256;
 
 // d max(x, c)/dx with the reference's tie rule (also max(c, x)).
@@ -77,6 +84,22 @@ __device__ __forceinline__ float sgn1(float x) { return x >= 0.0f ? 1.0f : -1.0f
 // Offsets of the four tables in the gradient vector (padded table heights).
 struct GradOff {
   int sph, pln, mat, lgt;
+};
+
+constexpr int kMaxRow = 9;  // the widest table row (a plane's)
+
+// A thread's accumulators for the launch's window [lo, lo + n) of table
+// floats, which holds whole table rows: g[0] the loss, g[1 + j − lo] the
+// gradient of table float j, and past them a row-wide sink.
+struct GradWin {
+  float* g;
+  int lo, n;
+  // the accumulators of the table row that starts at float `base` (the
+  // sink when the row lies outside the window)
+  __device__ __forceinline__ float* row(int base) const {
+    const unsigned k = static_cast<unsigned>(base - lo);
+    return g + 1 + (k < static_cast<unsigned>(n) ? k : n);
+  }
 };
 
 // Adjoint of sphere_t at a finite t: adds dL/do, dL/dd and the sphere's
@@ -199,7 +222,7 @@ struct NodeAdj {
 template <bool kGlass, bool kBwd>
 __device__ void train_node(const SceneView& s, const float* o, const float* d,
                            int win, int occ, bool leaf, const float* bg,
-                           NodeOut& out, const NodeAdj* adj, float* g,
+                           NodeOut& out, const NodeAdj* adj, GradWin g,
                            const GradOff& go, float* ain) {
   const int ns = s.ns, np = s.np;
   float t = CUDART_INF_F;
@@ -249,7 +272,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   float db[3] = {0.0f, 0.0f, 0.0f}, ob[3] = {0.0f, 0.0f, 0.0f};
   float albb[3] = {0.0f, 0.0f, 0.0f};
   float kdb = 0.0f, ksb = 0.0f, snb = 0.0f, iorb = 0.0f, dinb = 0.0f;
-  float* gm = g + go.mat + 7 * n.m;
+  float* gm = g.row(go.mat + 7 * n.m);
   if (n.diff) {
     float lamtb[3], specb[3];
     for (int k = 0; k < 3; ++k) {
@@ -262,7 +285,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
     for (int li = 0; li < s.nl; ++li) {
       const float* lpos = s.lgt + 6 * li;
       const float* lint = lpos + 3;
-      float* gl = g + go.lgt + 6 * li;
+      float* gl = g.row(go.lgt + 6 * li);
       const LightDir l = light_dir(lpos, n.p);
       const float mld = dot3(l.ldir, nrm);
       const float ldn = fmaxf(0.0f, mld);
@@ -406,7 +429,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   }
   // winner attributes → the tables
   if (n.pat) {
-    float* ga2 = g + go.pln + 9 * (win - ns) + 6;
+    float* ga2 = g.row(go.pln + 9 * (win - ns)) + 6;
     for (int k = 0; k < 3; ++k) ga2[k] += albb[k];
   } else {
     for (int k = 0; k < 3; ++k) gm[k] += albb[k];
@@ -416,7 +439,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   gm[5] += snb;
   gm[6] += iorb;
   if (win < ns) {
-    float* gs = g + go.sph + 4 * win;
+    float* gs = g.row(go.sph + 4 * win);
     const float* cc = s.sph + 4 * win;
     float invrb = 0.0f;
     for (int k = 0; k < 3; ++k) {
@@ -426,7 +449,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
     }
     gs[3] -= invrb * n.inv_r * n.inv_r;
   } else if (win < ns + np) {
-    float* gp = g + go.pln + 9 * (win - ns);
+    float* gp = g.row(go.pln + 9 * (win - ns));
     for (int k = 0; k < 3; ++k) gp[3 + k] += nb[k];
   }
   // p = o + t·d, t recomputed from (o, d) and the winner's table row
@@ -438,10 +461,10 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   }
   if (win < ns)
     sphere_t_bwd(o, d, s.sph + 4 * win, s.t_min, tb, ob, db,
-                 g + go.sph + 4 * win);
+                 g.row(go.sph + 4 * win));
   else if (win < ns + np)
     plane_t_bwd(o, d, s.pln + 9 * (win - ns), tb, ob, db,
-                g + go.pln + 9 * (win - ns));
+                g.row(go.pln + 9 * (win - ns)));
   else
     tri_t_bwd(o, d, s.tri + 12 * (win - ns - np), tb, ob, db);
   for (int k = 0; k < 3; ++k) {
@@ -454,71 +477,104 @@ __device__ __forceinline__ int node_depth(bool glass, int node) {
   return glass ? 31 - __clz(node + 1) : node;
 }
 
-// One pixel: replay, loss and gradients. g[0] += loss, g[1 + j] += dL/d
-// (table float j).
-template <bool kGlass>
+// The node store: per tree node its incoming ray (then that ray's adjoint,
+// 0..5), path weight (6), subtree radiance (7..9) and child weights (10, 11).
+// With kDeep (a chain longer than kNodes), the nodes past kNodes live in the
+// scratch buffer.
+template <int kNodes, bool kDeep>
+struct NodeStore {
+  float on[kNodes][12];
+  float* deep;  // this pixel's [nodes − kNodes, 12] slots, stride `stride`
+  size_t stride;
+  __device__ __forceinline__ float& at(int node, int f) {
+    if (kDeep && node >= kNodes)
+      return deep[(static_cast<size_t>(node - kNodes) * 12 + f) * stride];
+    return on[node][f];
+  }
+};
+constexpr int kPw = 6, kR = 7, kWr = 10, kWt = 11;
+
+// One pixel: replay, loss and gradients. g.g[0] += loss, and the window's
+// table floats += their dL/d.
+template <bool kGlass, bool kDeep>
 __device__ void train_pixel(const SceneView& s, const float* o0,
                             const float* d0, const int* plan, size_t plane_px,
                             size_t px, int max_depth, const float* bg,
-                            const float* tgt, float* g, const GradOff& go) {
-  constexpr int kNodes = kGlass ? (1 << kGlassLevels) - 1 : kChainLevels;
+                            const float* tgt, GradWin g, const GradOff& go,
+                            float* scratch) {
   const int n_nodes = kGlass ? (1 << (max_depth + 1)) - 1 : max_depth + 1;
-  // the node store: incoming ray (then its adjoint), path weight, subtree
-  // radiance, child weights
-  float ray[kNodes][6], pw[kNodes], R[kNodes][3], wr[kNodes], wt[kNodes];
+  NodeStore<kGlass ? (1 << kGlassLevels) - 1 : kChainLevels, kDeep> st;
+  st.deep = scratch + px;
+  st.stride = plane_px;
+  // live nodes: a bit per node with glass, the length of the chain without
   uint64_t live = 1;
+  int n_live = 1;
+  auto is_live = [&](int node) {
+    return kGlass ? ((live >> node) & 1) != 0 : node < n_live;
+  };
   for (int k = 0; k < 3; ++k) {
-    ray[0][k] = o0[k];
-    ray[0][3 + k] = d0[k];
+    st.at(0, k) = o0[k];
+    st.at(0, 3 + k) = d0[k];
   }
-  pw[0] = 1.0f;
+  st.at(0, kPw) = 1.0f;
 
   // sweep 1: the forward, top-down
   for (int node = 0; node < n_nodes; ++node) {
-    if (!((live >> node) & 1)) continue;
+    if (!is_live(node)) continue;
     const int depth = node_depth(kGlass, node);
     const int off = kGlass ? (1 << depth) - 1 : depth;
     const int win = plan[node * plane_px + px];
     const int occ = plan[(n_nodes + node) * plane_px + px];
     const bool leaf = depth == max_depth;
+    float od[6];
+    for (int k = 0; k < 6; ++k) od[k] = st.at(node, k);
     NodeOut out;
-    train_node<kGlass, false>(s, ray[node], ray[node] + 3, win, occ, leaf,
-                              bg, out, nullptr, nullptr, go, nullptr);
-    for (int k = 0; k < 3; ++k) R[node][k] = out.local[k];
-    wr[node] = out.wr;
-    wt[node] = out.wt;
+    train_node<kGlass, false>(s, od, od + 3, win, occ, leaf, bg, out, nullptr,
+                              g, go, nullptr);
+    for (int k = 0; k < 3; ++k) st.at(node, kR + k) = out.local[k];
+    st.at(node, kWr) = out.wr;
+    st.at(node, kWt) = out.wt;
+    const float pw = st.at(node, kPw);
     if (out.live_r) {
       const int ch = kGlass ? node + off + 1 : node + 1;
-      live |= uint64_t(1) << ch;
+      if (kGlass)
+        live |= uint64_t(1) << ch;
+      else
+        n_live = ch + 1;
       for (int k = 0; k < 3; ++k) {
-        ray[ch][k] = out.ro[k];
-        ray[ch][3 + k] = out.rd[k];
+        st.at(ch, k) = out.ro[k];
+        st.at(ch, 3 + k) = out.rd[k];
       }
-      pw[ch] = pw[node] * out.wr;
+      st.at(ch, kPw) = pw * out.wr;
     }
     if (kGlass && out.live_t) {
       const int ch = node + off + 1 + (1 << depth);
       live |= uint64_t(1) << ch;
       for (int k = 0; k < 3; ++k) {
-        ray[ch][k] = out.to[k];
-        ray[ch][3 + k] = out.td[k];
+        st.at(ch, k) = out.to[k];
+        st.at(ch, 3 + k) = out.td[k];
       }
-      pw[ch] = pw[node] * out.wt;
+      st.at(ch, kPw) = pw * out.wt;
     }
   }
   // subtree radiances, bottom-up, in the forward kernel's order
   for (int node = n_nodes - 1; node >= 0; --node) {
-    if (!((live >> node) & 1)) continue;
+    if (!is_live(node)) continue;
     const int depth = node_depth(kGlass, node);
     if (depth == max_depth) continue;
     const int off = kGlass ? (1 << depth) - 1 : depth;
     const int chr = kGlass ? node + off + 1 : node + 1;
-    if ((live >> chr) & 1)
-      for (int k = 0; k < 3; ++k) R[node][k] += wr[node] * R[chr][k];
+    if (is_live(chr)) {
+      const float w = st.at(node, kWr);
+      for (int k = 0; k < 3; ++k) st.at(node, kR + k) += w * st.at(chr, kR + k);
+    }
     if (kGlass) {
       const int cht = node + off + 1 + (1 << depth);
-      if ((live >> cht) & 1)
-        for (int k = 0; k < 3; ++k) R[node][k] += wt[node] * R[cht][k];
+      if (is_live(cht)) {
+        const float w = st.at(node, kWt);
+        for (int k = 0; k < 3; ++k)
+          st.at(node, kR + k) += w * st.at(cht, kR + k);
+      }
     }
   }
 
@@ -526,54 +582,55 @@ __device__ void train_pixel(const SceneView& s, const float* o0,
   float croot[3];
   float loss = 0.0f;
   for (int k = 0; k < 3; ++k) {
-    const float dk = fminf(fmaxf(R[0][k], 0.0f), 1.0f) - tgt[k];
+    const float rk = st.at(0, kR + k);
+    const float dk = fminf(fmaxf(rk, 0.0f), 1.0f) - tgt[k];
     loss += dk * dk;
-    croot[k] = 2.0f * dk * tie_clip(R[0][k], 0.0f, 1.0f);
+    croot[k] = 2.0f * dk * tie_clip(rk, 0.0f, 1.0f);
   }
-  g[0] += loss;
+  g.g[0] += loss;
   if (croot[0] == 0.0f && croot[1] == 0.0f && croot[2] == 0.0f) return;
 
   // sweep 2: the adjoint, children before parents
-  float* gt = g + 1;
   for (int node = n_nodes - 1; node >= 0; --node) {
-    if (!((live >> node) & 1)) continue;
+    if (!is_live(node)) continue;
     const int depth = node_depth(kGlass, node);
     const int off = kGlass ? (1 << depth) - 1 : depth;
     const bool leaf = depth == max_depth;
     NodeAdj adj;
+    const float pw = st.at(node, kPw);
     for (int k = 0; k < 3; ++k) {
-      adj.c[k] = pw[node] * croot[k];
+      adj.c[k] = pw * croot[k];
       adj.Rr[k] = adj.Rt[k] = 0.0f;
     }
     for (int k = 0; k < 6; ++k) adj.ar[k] = adj.at[k] = 0.0f;
     if (!leaf) {
       const int chr = kGlass ? node + off + 1 : node + 1;
-      if ((live >> chr) & 1) {
-        for (int k = 0; k < 3; ++k) adj.Rr[k] = R[chr][k];
-        for (int k = 0; k < 6; ++k) adj.ar[k] = ray[chr][k];
+      if (is_live(chr)) {
+        for (int k = 0; k < 3; ++k) adj.Rr[k] = st.at(chr, kR + k);
+        for (int k = 0; k < 6; ++k) adj.ar[k] = st.at(chr, k);
       }
       if (kGlass) {
         const int cht = node + off + 1 + (1 << depth);
-        if ((live >> cht) & 1) {
-          for (int k = 0; k < 3; ++k) adj.Rt[k] = R[cht][k];
-          for (int k = 0; k < 6; ++k) adj.at[k] = ray[cht][k];
+        if (is_live(cht)) {
+          for (int k = 0; k < 3; ++k) adj.Rt[k] = st.at(cht, kR + k);
+          for (int k = 0; k < 6; ++k) adj.at[k] = st.at(cht, k);
         }
       }
     }
     const int win = plan[node * plane_px + px];
     const int occ = plan[(n_nodes + node) * plane_px + px];
     float od[6], ain[6];
-    for (int k = 0; k < 6; ++k) od[k] = ray[node][k];
+    for (int k = 0; k < 6; ++k) od[k] = st.at(node, k);
     NodeOut out;
-    train_node<kGlass, true>(s, od, od + 3, win, occ, leaf, bg, out, &adj, gt,
+    train_node<kGlass, true>(s, od, od + 3, win, occ, leaf, bg, out, &adj, g,
                              go, ain);
-    for (int k = 0; k < 6; ++k) ray[node][k] = ain[k];
+    for (int k = 0; k < 6; ++k) st.at(node, k) = ain[k];
   }
 }
 
 // ---- kernels ---------------------------------------------------------------
 
-template <bool kGlass>
+template <bool kGlass, bool kDeep>
 __global__ void __launch_bounds__(kTrainThreads)
 fused_train_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ pln_g,
@@ -581,24 +638,25 @@ fused_train_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ lgt_g,
                    const float* __restrict__ stat_g,
                    const int* __restrict__ ids_g,
-                   const float* __restrict__ cam_g, GradOff go, int n_grads,
-                   int ns, int np, int nt, int nm, int nl, int max_depth,
+                   const float* __restrict__ cam_g, GradOff go, int g0,
+                   int gn, int ns, int np, int nt, int nm, int nl, int max_depth,
                    float t_min, float bias, float bg_r, float bg_g, float bg_b,
                    int width, int height, int row0, int rows, float eps,
                    const int* __restrict__ plan,
                    const float* __restrict__ target,
-                   float* __restrict__ partial) {
+                   float* __restrict__ partial, float* __restrict__ scratch) {
   extern __shared__ float smem[];
-  __shared__ float red[kTrainWarps][kMaxGrads + 1];
+  __shared__ float red[kTrainWarps][kGradWindow + 1];
   const float* cam;
   const SceneView s =
       stage_scene(smem, sph_g, pln_g, mat_g, lgt_g, stat_g, ids_g, cam_g, ns,
                   np, nt, nm, nl, t_min, bias, &cam);
   __syncthreads();
 
-  const int n_out = n_grads + 1;
-  float g[kMaxGrads + 1];
-  for (int j = 0; j < n_out; ++j) g[j] = 0.0f;
+  const int n_out = gn + 1;
+  float g[1 + kGradWindow + kMaxRow];  // the window, then a sink (GradWin)
+  for (int j = 0; j < n_out + kMaxRow; ++j) g[j] = 0.0f;
+  const GradWin gw{g, g0, gn};
   const int col = blockIdx.x * kTrainBlockX + threadIdx.x;
   const int r = blockIdx.y * kTrainBlockY + threadIdx.y;
   if (col < width && r < rows) {  // threads past the band add nothing
@@ -606,8 +664,10 @@ fused_train_kernel(const float* __restrict__ sph_g,
     float o[3], d[3];
     eye_ray(cam, row0 + r, col, width, height, eps, o, d);
     const size_t px = static_cast<size_t>(r) * width + col;
-    train_pixel<kGlass>(s, o, d, plan, static_cast<size_t>(rows) * width, px,
-                        max_depth, bg, target + 3 * px, g, go);
+    train_pixel<kGlass, kDeep>(s, o, d, plan,
+                               static_cast<size_t>(rows) * width, px,
+                               max_depth, bg, target + 3 * px, gw, go,
+                               scratch);
   }
   // the block's sums, in a fixed order: a shuffle tree per warp, then the
   // warps in turn
@@ -628,11 +688,12 @@ fused_train_kernel(const float* __restrict__ sph_g,
   }
 }
 
-// out[j] = Σ_b partial[b, j]: one block per column, each thread a strided
-// run of blocks in order, then a fixed tree.
+// Σ_b partial[b, j]: one block per column, each thread a strided run of
+// blocks in order, then a fixed tree. Column 0 (the loss) goes to *loss_out
+// when that is not null, column j ≥ 1 to grad_out[j − 1].
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_partials(const float* __restrict__ partial, int n_blocks, int n_out,
-                float* __restrict__ out) {
+                float* __restrict__ loss_out, float* __restrict__ grad_out) {
   __shared__ float buf[kReduceThreads];
   const int j = blockIdx.x;
   float v = 0.0f;
@@ -644,7 +705,12 @@ reduce_partials(const float* __restrict__ partial, int n_blocks, int n_out,
     if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[j] = buf[0];
+  if (threadIdx.x == 0) {
+    if (j > 0)
+      grad_out[j - 1] = buf[0];
+    else if (loss_out)
+      *loss_out = buf[0];
+  }
 }
 
 }  // namespace
@@ -655,21 +721,35 @@ extern "C" int rt_fused_train_blocks(int width, int rows) {
          ((rows + kTrainBlockY - 1) / kTrainBlockY);
 }
 
+// Nodes per pixel a launch keeps in the scratch buffer (12 floats each): 0
+// unless a glass-free tree is deeper than the on-chip node store.
+extern "C" int rt_fused_train_deep_nodes(int max_depth, int glass) {
+  return glass ? 0
+               : (max_depth + 1 > kChainLevels ? max_depth + 1 - kChainLevels
+                                               : 0);
+}
+
 // Plain C entry for ctypes. Launches the train kernel and the reduction on
-// `stream`, does not synchronise, and returns cudaGetLastError() (0 on
+// `stream` for the window [g0, g0 + gn) of the gradient vector (gn ≤
+// kGradWindow; whole table rows), does not synchronise, and returns cudaGetLastError() (0 on
 // success). `hs, hp, hm, hl`: the tables' heights (padded); `plan`:
-// [2·n_nodes, rows, width] i32; `target`: [rows, width, 3] f32; `partial`:
-// [rt_fused_train_blocks(width, rows), 1 + G] f32 scratch; `out`: [1 + G]
-// f32, the loss then the four tables' gradients in order.
+// [2·n_nodes, rows, width] i32 (only the live nodes' entries are read);
+// `target`: [rows, width, 3] f32; `partial`: [rt_fused_train_blocks(width,
+// rows), 1 + gn] f32 scratch; `loss_out`: the loss, or null; `grad_out`: the
+// window's gn gradients (the four tables' floats in order, from g0);
+// `scratch`: [rt_fused_train_deep_nodes, 12, rows, width] f32, or null when
+// that is 0.
 extern "C" int rt_fused_train(
     const void* sph, const void* pln, const void* mat, const void* lgt,
     const void* stat, const void* ids, const void* cam, int hs, int hp, int hm,
     int hl, int ns, int np, int nt, int nm, int nl, int max_depth, int glass,
     float t_min, float bias, float bg_r, float bg_g, float bg_b, int width,
     int height, int row0, int rows, float eps, const void* plan,
-    const void* target, void* partial, void* out, void* stream) {
+    const void* target, int g0, int gn, void* partial, void* loss_out,
+    void* grad_out, void* scratch, void* stream) {
   if (rows <= 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (max_depth < 0 || max_depth >= (glass ? kGlassLevels : kChainLevels))
+  if (max_depth < 0 || (glass && max_depth >= kGlassLevels) ||
+      (rt_fused_train_deep_nodes(max_depth, glass) > 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nl > 32) return static_cast<int>(cudaErrorInvalidValue);
   GradOff go;
@@ -678,28 +758,39 @@ extern "C" int rt_fused_train(
   go.mat = go.pln + 9 * hp;
   go.lgt = go.mat + 7 * hm;
   const int n_grads = go.lgt + 6 * hl;
-  if (n_grads > kMaxGrads) return static_cast<int>(cudaErrorInvalidValue);
+  auto row_start = [&](int j) {  // j starts a table row (or ends the last)
+    if (j <= go.pln) return j % 4 == 0;
+    if (j <= go.mat) return (j - go.pln) % 9 == 0;
+    if (j <= go.lgt) return (j - go.mat) % 7 == 0;
+    return (j - go.lgt) % 6 == 0;
+  };
+  if (g0 < 0 || gn < 1 || gn > kGradWindow || g0 + gn > n_grads ||
+      !row_start(g0) || !row_start(g0 + gn))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = scene_smem_bytes(ns, np, nt, nm, nl);
-  const size_t red = sizeof(float) * kTrainWarps * (kMaxGrads + 1);
+  const size_t red = sizeof(float) * kTrainWarps * (kGradWindow + 1);
   if (smem + red > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTrainBlockX, kTrainBlockY);
   const dim3 grid((width + kTrainBlockX - 1) / kTrainBlockX,
                   (rows + kTrainBlockY - 1) / kTrainBlockY);
   const int n_blocks = static_cast<int>(grid.x * grid.y);
   auto st = static_cast<cudaStream_t>(stream);
-  auto kern = glass ? fused_train_kernel<true> : fused_train_kernel<false>;
+  auto kern = glass ? fused_train_kernel<true, false>
+                    : (rt_fused_train_deep_nodes(max_depth, glass) > 0
+                           ? fused_train_kernel<false, true>
+                           : fused_train_kernel<false, false>);
   kern<<<grid, block, smem, st>>>(
       static_cast<const float*>(sph), static_cast<const float*>(pln),
       static_cast<const float*>(mat), static_cast<const float*>(lgt),
       static_cast<const float*>(stat), static_cast<const int*>(ids),
-      static_cast<const float*>(cam), go, n_grads, ns, np, nt, nm, nl,
+      static_cast<const float*>(cam), go, g0, gn, ns, np, nt, nm, nl,
       max_depth, t_min, bias, bg_r, bg_g, bg_b, width, height, row0, rows, eps,
       static_cast<const int*>(plan), static_cast<const float*>(target),
-      static_cast<float*>(partial));
+      static_cast<float*>(partial), static_cast<float*>(scratch));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<n_grads + 1, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partial), n_blocks, n_grads + 1,
-      static_cast<float*>(out));
+  reduce_partials<<<gn + 1, kReduceThreads, 0, st>>>(
+      static_cast<const float*>(partial), n_blocks, gn + 1,
+      static_cast<float*>(loss_out), static_cast<float*>(grad_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,7 +18,7 @@ constexpr float kDetEps = 1e-8f;
 constexpr int kReflection = 1;
 constexpr int kReflectionAndRefraction = 2;
 constexpr int kGlassLevels = 6;    // MAX_GLASS_DEPTH + 1
-constexpr int kChainLevels = 32;   // KERNEL_MAX_LEVELS (no glass)
+constexpr int kChainLevels = 32;   // chain levels on chip (no glass)
 constexpr int kSmemBytes = 48 * 1024;
 
 // The packed scene, staged in shared memory.
@@ -247,41 +247,46 @@ __device__ __forceinline__ void node_surface(const SceneView& s,
 }
 
 // Phong of a diffuse hit under the shadow bits `occ` (bit l: light l
-// occluded; the specular term is not shadowed), fresnel kr (1 on total
-// internal reflection), the w·bg of a mirror or glass leaf, and below
-// max_depth the child rays: with kAll on every lane (the forward kernel
-// records the plan of every node, reached or not), else only on the hits
-// whose children are reached (mirror and glass; refraction where it
-// exists).
+// occluded; the specular term is not shadowed), added to n.rad.
+__device__ __forceinline__ void node_phong(const SceneView& s, const float* d,
+                                           int occ, Node& n) {
+  for (int li = 0; li < s.nl; ++li) {
+    const float* lpos = s.lgt + 6 * li;
+    const float* lint = lpos + 3;
+    const LightDir l = light_dir(lpos, n.p);
+    const float ldn = fmaxf(0.0f, dot3(l.ldir, n.nrm));
+    const float vis = ((occ >> li) & 1) ? 0.0f : 1.0f;
+    const float mld = dot3(l.ldir, n.nrm);
+    float rl[3];
+    for (int k = 0; k < 3; ++k) rl[k] = -l.ldir[k] + 2.0f * mld * n.nrm[k];
+    const float base = -dot3(rl, d);
+    const float pw = base > 0.0f ? powf(fmaxf(base, 1e-7f), n.spec_n) : 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      n.lamt[k] += vis * ldn * lint[k];
+      n.spec[k] += pw * lint[k];
+    }
+  }
+  for (int k = 0; k < 3; ++k)
+    n.rad[k] += n.lamt[k] * n.alb[k] * n.kd + n.spec[k] * n.ks;
+}
+
+// The node's radiance without its children: Phong of a diffuse hit when
+// `phong` (the forward's full plan skips it on nodes whose radiance never
+// reaches the pixel), fresnel kr (1 on total internal reflection), the w·bg
+// of a mirror or glass leaf, and below max_depth the child rays: with kAll
+// on every lane (the full plan records every node, reached or not), else
+// only on the hits whose children are reached (mirror and glass; refraction
+// where it exists).
 template <bool kGlass, bool kAll>
 __device__ __forceinline__ void node_shade(const SceneView& s, const float* d,
                                            int occ, bool leaf,
-                                           const float* bg, Node& n) {
+                                           const float* bg, Node& n,
+                                           bool phong = true) {
   for (int k = 0; k < 3; ++k) {
     n.rad[k] = n.valid ? 0.0f : bg[k];
     n.lamt[k] = n.spec[k] = 0.0f;
   }
-  if (n.diff) {
-    for (int li = 0; li < s.nl; ++li) {
-      const float* lpos = s.lgt + 6 * li;
-      const float* lint = lpos + 3;
-      const LightDir l = light_dir(lpos, n.p);
-      const float ldn = fmaxf(0.0f, dot3(l.ldir, n.nrm));
-      const float vis = ((occ >> li) & 1) ? 0.0f : 1.0f;
-      const float mld = dot3(l.ldir, n.nrm);
-      float rl[3];
-      for (int k = 0; k < 3; ++k) rl[k] = -l.ldir[k] + 2.0f * mld * n.nrm[k];
-      const float base = -dot3(rl, d);
-      const float pw =
-          base > 0.0f ? powf(fmaxf(base, 1e-7f), n.spec_n) : 0.0f;
-      for (int k = 0; k < 3; ++k) {
-        n.lamt[k] += vis * ldn * lint[k];
-        n.spec[k] += pw * lint[k];
-      }
-    }
-    for (int k = 0; k < 3; ++k)
-      n.rad[k] += n.lamt[k] * n.alb[k] * n.kd + n.spec[k] * n.ks;
-  }
+  if (n.diff && phong) node_phong(s, d, occ, n);
 
   n.cosi = fminf(fmaxf(n.din, -1.0f), 1.0f);
   n.entering = n.cosi <= 0.0f;

@@ -121,9 +121,14 @@ def load_library() -> ctypes.CDLL:
             + [i] * 7                     # ns, np, nt, nm, nl, max_depth, glass
             + [f] * 5                     # t_min, bias, bg rgb
             + [i] * 4                     # width, height, row0, rows
-            + [f, p, p, p])               # eps, img, plan, stream
+            + [f, i, p, p, p, p])         # eps, mode, img, plan, scratch,
+                                          # stream
         lib.rt_fused_train_blocks.restype = i
         lib.rt_fused_train_blocks.argtypes = [i, i]  # width, rows
+        for entry in ("rt_fused_whitted_deep_levels",
+                      "rt_fused_train_deep_nodes"):
+            getattr(lib, entry).restype = i
+            getattr(lib, entry).argtypes = [i, i]  # max_depth, glass
         lib.rt_fused_train.restype = i
         lib.rt_fused_train.argtypes = (
             [p] * 7                       # sph, pln, mat, lgt, stat, ids, cam
@@ -131,8 +136,9 @@ def load_library() -> ctypes.CDLL:
             + [i] * 7                     # ns, np, nt, nm, nl, max_depth, glass
             + [f] * 5                     # t_min, bias, bg rgb
             + [i] * 4                     # width, height, row0, rows
-            + [f, p, p, p, p, p])         # eps, plan, target, partial, out,
-                                          # stream
+            + [f, p, p, i, i]             # eps, plan, target, g0, gn
+            + [p] * 5)                    # partial, loss_out, grad_out,
+                                          # scratch, stream
         lib.rt_tri_trace.restype = i
         lib.rt_tri_trace.argtypes = (
             [p] * 5                       # orig, dir, max_t, active, tris

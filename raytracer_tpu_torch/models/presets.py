@@ -13,6 +13,7 @@ shared ground truth for the JAX renderer, the NumPy oracle and the C++ oracle
 5. config5_inverse        — inverse-rendering setup (positions + albedos)
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -269,6 +270,45 @@ def config7_uv_quad():
     cam = Camera.build(pos=(0.0, 0.3, 1.0), fov_deg=55.0)
     opts = RenderOptions(width=512, height=512, max_depth=2)
     return scene, cam, opts
+
+
+# Scenes beyond the reference's presets, for the fused kernels' limits.
+
+def many_spheres(n: int = 30, width: int = 96, height: int = 64):
+    """n spheres on a grid, each with its own material (every fourth a
+    mirror), over a plane that shares sphere 0's, under one light, depth 2:
+    4n + 7n + 9 + 6 fused-path table floats (345 at n = 30, more than one
+    train-kernel gradient window holds). Returns (scene, camera, opts)."""
+    rng = np.random.default_rng(11)
+    cols = int(np.ceil(np.sqrt(n)))
+    centers = [((i % cols - cols / 2) * 1.1, (i // cols) * 0.9 - 1.0,
+                -7.0 - 0.3 * (i % 3)) for i in range(n)]
+    mtypes = [REFLECTION if i % 4 == 3 else DIFFUSE_AND_GLOSSY
+              for i in range(n)]
+    mats = Materials.build(mtypes, rng.uniform(0.1, 0.9, (n, 3)), [0.8] * n,
+                           rng.uniform(0.05, 0.3, n), [25.0] * n, [1.3] * n)
+    scene = make_scene(
+        spheres=Spheres.build(centers, rng.uniform(0.3, 0.45, n), range(n)),
+        planes=Planes.build([(0.0, -1.5, 0.0)], [(0.0, 1.0, 0.0)],
+                            [(1.0, 0.0, 0.0)], [(0.0, 0.0, 1.0)], [0]),
+        materials=mats,
+        lights=Lights.build([(-3.0, 6.0, 1.0)], [(0.9, 0.9, 0.9)]))
+    cam = Camera.build(pos=(0.0, 0.5, 1.0), fov_deg=60.0)
+    return scene, cam, RenderOptions(width=width, height=height, max_depth=2)
+
+
+def mirror_hall(width: int, height: int, max_depth: int):
+    """config2 between two mirror planes, its floor and a ceiling above the
+    lights: most rays bounce until max_depth, so a deep tree keeps nearly
+    every level live. Returns (scene, camera, opts)."""
+    scene, cam, opts = config2_mirror_spheres()
+    mirror = 2  # config2's mirror material
+    scene = scene.replace(planes=Planes.build(
+        [(0.0, -1.5, 0.0), (0.0, 8.0, 0.0)], [(0.0, 1.0, 0.0),
+                                              (0.0, -1.0, 0.0)],
+        [(1.0, 0.0, 0.0)] * 2, [(0.0, 0.0, 1.0)] * 2, [mirror, mirror]))
+    return scene, cam, dataclasses.replace(opts, width=width, height=height,
+                                           max_depth=max_depth)
 
 
 PRESETS = {

@@ -12,21 +12,29 @@ per-light shadow bitmask plane (bit l = light l occluded).
 
 Two versions of the same function, behind `FusedWhitted`:
 - `fused_whitted_cuda` launches `csrc/fused_whitted.cu` (one thread per
-  pixel, the scene in shared memory, an explicit per-thread stack);
+  pixel, the scene in shared memory, an explicit per-thread stack) in one
+  of three modes: the image alone (`render`: only the live nodes, those
+  whose radiance reaches the pixel, are traced), the live plan (inside
+  `plan_value_and_grad`: of the live nodes, the plan entries that the train
+  kernel reads; the others left unwritten or 0) or the full plan
+  (`render_plan`: every node's entries, the reference's contract);
 - `fused_whitted_plain` is the plain torch version, vectorised over the
-  band's pixels and recursing in Python in the same depth-first order.
+  band's pixels and recursing in Python in the same depth-first order. It
+  writes every node's entries, so it is the plain version of all three
+  modes: what the kernel skips changes no pixel and no entry that the train
+  kernel reads.
 Both transcribe the reference kernel's own expressions (not the wavefront
 renderer's), op for op. A `FusedWhitted` on a CPU device renders with the
 plain version; on a CUDA device with the kernel, or it raises.
 
-`plan_value_and_grad` is one training step on a band: `render_plan`
-records the plan, and the train step replays it (each node's winner from
-the plan, only its t recomputed, shadow bits from the plan) to form
+`plan_value_and_grad` is one training step on a band: the forward records
+the plan, and the train step replays it (each node's winner from the plan,
+only its t recomputed, shadow bits from the plan) to form
 Σ (clip(rad, 0, 1) − target)² and its gradient with respect to every table.
 Again two versions: `fused_train_cuda` launches `csrc/fused_train.cu` (a
 hand-written adjoint of the tree), `fused_train_plain` runs torch autograd
 over the forward's own node body in replay mode. Both give the reference's
-gradients at ties (see `_max`).
+gradients at ties (see `ops/safemath.py`).
 
 The scene lives in four tables on the object's device, packed exactly as the
 reference packs its param-mode inputs (sph [S,4] center|radius, pln [P,9]
@@ -47,6 +55,10 @@ import torch
 from raytracer_tpu_torch.core.types import (REFLECTION,
                                             REFLECTION_AND_REFRACTION, Camera,
                                             RenderOptions, Scene)
+from raytracer_tpu_torch.ops.safemath import abs1 as _abs
+from raytracer_tpu_torch.ops.safemath import clip as _clip
+from raytracer_tpu_torch.ops.safemath import const as _const
+from raytracer_tpu_torch.ops.safemath import maximum as _max
 
 # Baked triangles are swept per ray like spheres and planes: fine for scene
 # geometry (Cornell walls), ruinous for real meshes (those take the grid).
@@ -55,23 +67,25 @@ MAX_FUSED_TRIS = 64
 MAX_GLASS_DEPTH = 5
 # The occlusion plane packs one bit per light into an int32.
 MAX_PLAN_LIGHTS = 32
-# The CUDA kernel keeps one stack level per depth; without glass it holds
-# this many levels (max_depth ≤ 31). The plain version has no such limit.
-KERNEL_MAX_LEVELS = 32
 # The kernel stages the packed scene in shared memory (static 48 KB window).
 KERNEL_SMEM_BYTES = 48 * 1024
+# The train kernel accumulates the gradients of at most this many table
+# floats, whole table rows, per launch (of G = 4·S + 9·P + 7·M + 6·L, padded
+# heights): one launch per window.
+TRAIN_GRAD_WINDOW = 256
+_MODES = {"image": 0, "live_plan": 1, "plan": 2}
 
 _DET_EPS = 1e-8
 _INF = math.inf
 
-# The train kernel keeps one gradient accumulator per table entry in each
-# thread: G = 4·S + 9·P + 7·M + 6·L table floats (padded heights) at most.
-TRAIN_MAX_GRADS = 256
-
-# Kernel launches since the last reset (`launches`: the forward kernel,
-# `train_launches`: the train kernel). Incremented only where a kernel is
-# launched; callers that must show a kernel ran set it to 0 and read it.
+# Kernel launches since the last reset: the forward kernel by mode
+# (`launches`: image, `live_plan_launches`, `plan_launches`: full plan) and
+# the train kernel (`train_launches`, one per gradient window). Incremented
+# only where a kernel is launched; callers that must show a kernel ran set
+# them to 0 and read them.
 launches = 0
+live_plan_launches = 0
+plan_launches = 0
 train_launches = 0
 
 
@@ -241,24 +255,28 @@ class FusedWhitted:
                              f"{self.opts.height}-row frame")
         return rows
 
-    def _run(self, row0, rows, eps, emit_plan):
+    def _run(self, row0, rows, eps, mode):
         rows = self._band(row0, rows)
-        if emit_plan and self.counts[4] > MAX_PLAN_LIGHTS:
+        if mode != "image" and self.counts[4] > MAX_PLAN_LIGHTS:
             raise ValueError("plan emission packs per-light occlusion into "
                              f"int32 bits (≤{MAX_PLAN_LIGHTS} lights)")
         if self.device.type == "cpu":
-            return fused_whitted_plain(self, row0, rows, eps, emit_plan)
-        return fused_whitted_cuda(self, row0, rows, eps, emit_plan)
+            return fused_whitted_plain(self, row0, rows, eps,
+                                       mode != "image")
+        return fused_whitted_cuda(self, row0, rows, eps, mode)
 
     def render(self, row0: int = 0, rows: int | None = None, eps=0.0):
-        """→ image [rows, W, 3] in [0, 1] (a band of the full projection)."""
-        return self._run(row0, rows, eps, False)[0]
+        """→ image [rows, W, 3] in [0, 1] (a band of the full projection).
+        On the card only the nodes whose radiance reaches a pixel are
+        traced."""
+        return self._run(row0, rows, eps, "image")[0]
 
     def render_plan(self, row0: int = 0, rows: int | None = None, eps=0.0):
         """→ (image, win_planes, occ_planes): the forward render plus, per
         recursion node in (depth, path-prefix) order, the winner-id plane
-        and the per-light occlusion bitmask plane."""
-        img, plan = self._run(row0, rows, eps, True)
+        and the per-light occlusion bitmask plane, for every node of every
+        pixel's tree (the reference's contract)."""
+        img, plan = self._run(row0, rows, eps, "plan")
         n = self.n_nodes
         return img, tuple(plan[:n].unbind(0)), tuple(plan[n:].unbind(0))
 
@@ -268,7 +286,8 @@ class FusedWhitted:
         """One training step's loss and gradients for a band →
         (loss_sum, grads, img).
 
-        `render_plan` renders the band and records its plan; the train
+        The forward renders the band and records its plan (on the card the
+        live plan: only the entries that the train kernel reads); the train
         kernel (`fused_train_cuda`; `fused_train_plain` on a CPU object)
         replays the plan against the live tables and returns Σ over the
         band of (clip(rad, 0, 1) − target)² and its gradient with respect
@@ -280,7 +299,7 @@ class FusedWhitted:
             raise ValueError("build with param_inputs=True to train")
         rows = self._band(row0, rows)
         target = _check_target(self, rows, target)
-        img, plan = self._run(row0, rows, eps, True)
+        img, plan = self._run(row0, rows, eps, "live_plan")
         if self.device.type == "cpu":
             n = self.n_nodes
             loss, grads = fused_train_plain(self, row0, rows, plan[:n],
@@ -307,6 +326,20 @@ def _check_target(fw: FusedWhitted, rows: int, target) -> torch.Tensor:
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
+def grad_windows(tables):
+    """The train kernel's launches: windows (g0, gn) of whole table rows,
+    ≤TRAIN_GRAD_WINDOW floats each, covering the tables' floats in order."""
+    windows, g0, gn = [], 0, 0
+    for t in tables:
+        width = t.shape[1]
+        for _ in range(t.shape[0]):
+            if gn + width > TRAIN_GRAD_WINDOW:
+                windows.append((g0, gn))
+                g0, gn = g0 + gn, 0
+            gn += width
+    return windows + [(g0, gn)]
+
+
 def _smem_bytes(fw: FusedWhitted) -> int:
     """Shared memory the kernel stages the scene in, for this object."""
     ns, np_, nt, nm, nl = fw.counts
@@ -315,21 +348,26 @@ def _smem_bytes(fw: FusedWhitted) -> int:
 
 
 def fused_whitted_cuda(fw: FusedWhitted, row0: int, rows: int, eps=0.0,
-                       emit_plan: bool = False):
+                       mode: str = "image"):
     """Launch the CUDA kernel on the current stream → (image [rows, W, 3]
-    f32, plan [2·n_nodes, rows, W] i32 or None). Raises on any input the
-    kernel does not take and on a refused launch."""
-    global launches
+    f32, plan [2·n_nodes, rows, W] i32 or None). `mode`: "image" (no plan),
+    "plan" (every entry: `render_plan`'s contract) or "live_plan", whose
+    plan is not `render_plan`'s: it holds the winners of the live nodes and
+    only the occlusion bits the train kernel reads (diffuse hits, lights
+    with ldn ≥ 0; the other bits 0), and the dead nodes' entries are
+    undefined (torch.empty's). Pass a live plan to `fused_train_cuda` and
+    nowhere else. Raises on any input the kernel does not take and on a
+    refused launch."""
+    global launches, live_plan_launches, plan_launches
     from raytracer_tpu_torch.kernels.build import load_library
 
     dev = fw.device
     if dev.type != "cuda":
         raise ValueError(f"fused_whitted_cuda needs a CUDA object, got {dev}")
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r}: expected one of {list(_MODES)}")
     opts = fw.opts
     ns, np_, nt, nm, nl = fw.counts
-    if not fw.has_glass and opts.max_depth + 1 > KERNEL_MAX_LEVELS:
-        raise ValueError(f"the kernel's stack holds {KERNEL_MAX_LEVELS} "
-                         f"levels; max_depth {opts.max_depth} is deeper")
     smem = _smem_bytes(fw)
     if smem > KERNEL_SMEM_BYTES:
         raise ValueError(f"scene needs {smem} bytes of shared memory, the "
@@ -346,34 +384,44 @@ def fused_whitted_cuda(fw: FusedWhitted, row0: int, rows: int, eps=0.0,
                              f"[≥{min_rows}, {width}] on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     w = opts.width
-    img = torch.empty((rows, w, 3), dtype=torch.float32, device=dev)
-    plan = (torch.empty((2 * fw.n_nodes, rows, w), dtype=torch.int32,
-                        device=dev) if emit_plan else None)
-    bg = [float(c) for c in opts.background]
     lib = load_library()
+    img = torch.empty((rows, w, 3), dtype=torch.float32, device=dev)
+    plan = (None if mode == "image" else torch.empty(
+        (2 * fw.n_nodes, rows, w), dtype=torch.int32, device=dev))
+    deep = lib.rt_fused_whitted_deep_levels(opts.max_depth, int(fw.has_glass))
+    scratch = (torch.empty((deep, 4, rows, w), dtype=torch.float32,
+                           device=dev) if deep else None)
+    bg = [float(c) for c in opts.background]
     rc = lib.rt_fused_whitted(
         fw.sph.data_ptr(), fw.pln.data_ptr(), fw.mat.data_ptr(),
         fw.lgt.data_ptr(), fw.stat.data_ptr(), fw.ids.data_ptr(),
         fw.cam.data_ptr(), ns, np_, nt, nm, nl, opts.max_depth,
         int(fw.has_glass), float(opts.t_min), float(opts.bias), *bg,
-        w, opts.height, row0, rows, float(eps), img.data_ptr(),
-        plan.data_ptr() if emit_plan else None,
+        w, opts.height, row0, rows, float(eps), _MODES[mode],
+        img.data_ptr(), None if plan is None else plan.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused Whitted kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    if mode == "image":
+        launches += 1
+    elif mode == "live_plan":
+        live_plan_launches += 1
+    else:
+        plan_launches += 1
     return img, plan
 
 
 def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
                      eps=0.0):
-    """Launch the train kernel (csrc/fused_train.cu) on the current stream →
-    (loss_sum [] f32, {"sph", "pln", "mat", "lgt"} gradients shaped like
-    the tables). `plan`: the band's [2·n_nodes, rows, W] i32 plan as
-    `fused_whitted_cuda(..., emit_plan=True)` returns it (the win planes,
-    then the occ planes); `target` [rows, W, 3] f32. Raises on any input
-    the kernel does not take and on a refused launch."""
+    """Launch the train kernel (csrc/fused_train.cu) on the current stream,
+    once per window of table rows (`grad_windows`) → (loss_sum [] f32,
+    {"sph", "pln", "mat", "lgt"} gradients shaped like the tables).
+    `plan`: the band's [2·n_nodes, rows, W] i32 plan as `fused_whitted_cuda`
+    returns it in either plan mode (the win planes, then the occ planes; only
+    the live nodes' entries are read); `target` [rows, W, 3] f32. Raises on
+    any input the kernel does not take and on a refused launch."""
     global train_launches
     from raytracer_tpu_torch.kernels.build import load_library
 
@@ -384,14 +432,11 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
     ns, np_, nt, nm, nl = fw.counts
     w = opts.width
     rows = fw._band(row0, rows)
-    if not fw.has_glass and opts.max_depth + 1 > KERNEL_MAX_LEVELS:
-        raise ValueError(f"the kernel holds {KERNEL_MAX_LEVELS} nodes; "
-                         f"max_depth {opts.max_depth} is deeper")
     if nl > MAX_PLAN_LIGHTS:
         raise ValueError(f"the plan packs ≤{MAX_PLAN_LIGHTS} lights' shadow "
                          "bits")
-    # the scene, and the block's [4 warps, 1 + TRAIN_MAX_GRADS] sums
-    smem = _smem_bytes(fw) + 16 * (TRAIN_MAX_GRADS + 1)
+    # the scene, and the block's [4 warps, 1 + TRAIN_GRAD_WINDOW] sums
+    smem = _smem_bytes(fw) + 16 * (TRAIN_GRAD_WINDOW + 1)
     if smem > KERNEL_SMEM_BYTES:
         raise ValueError(f"scene needs {smem} bytes of shared memory, the "
                          f"kernel has {KERNEL_SMEM_BYTES}")
@@ -407,9 +452,6 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
                              f"[≥{min_rows}, {width}] on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     n_grads = sum(t.numel() for t in tabs)
-    if n_grads > TRAIN_MAX_GRADS:
-        raise ValueError(f"the tables hold {n_grads} floats; the kernel "
-                         f"accumulates ≤{TRAIN_MAX_GRADS} gradients")
     want = (2 * fw.n_nodes, rows, w)
     if (not isinstance(plan, torch.Tensor) or plan.device != dev
             or plan.dtype != torch.int32 or tuple(plan.shape) != want
@@ -424,21 +466,30 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
                          f"3] on {dev}")
     lib = load_library()
     n_blocks = lib.rt_fused_train_blocks(w, rows)
-    partial = torch.empty((n_blocks, n_grads + 1), dtype=torch.float32,
-                          device=dev)
+    windows = grad_windows(tabs)
+    partial = torch.empty((n_blocks, 1 + max(gn for _, gn in windows)),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((n_grads + 1,), dtype=torch.float32, device=dev)
+    deep = lib.rt_fused_train_deep_nodes(opts.max_depth, int(fw.has_glass))
+    scratch = (torch.empty((deep, 12, rows, w), dtype=torch.float32,
+                           device=dev) if deep else None)
     bg = [float(c) for c in opts.background]
-    rc = lib.rt_fused_train(
-        *(t.data_ptr() for t in tabs), fw.stat.data_ptr(), fw.ids.data_ptr(),
-        fw.cam.data_ptr(), *(t.shape[0] for t in tabs), ns, np_, nt, nm, nl,
-        opts.max_depth, int(fw.has_glass), float(opts.t_min),
-        float(opts.bias), *bg, w, opts.height, row0, rows, float(eps),
-        plan.data_ptr(), target.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused train kernel launch failed: CUDA error "
-                           f"{rc}")
-    train_launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for g0, gn in windows:  # the loss with the first window
+        rc = lib.rt_fused_train(
+            *(t.data_ptr() for t in tabs), fw.stat.data_ptr(),
+            fw.ids.data_ptr(), fw.cam.data_ptr(),
+            *(t.shape[0] for t in tabs), ns, np_, nt, nm, nl,
+            opts.max_depth, int(fw.has_glass), float(opts.t_min),
+            float(opts.bias), *bg, w, opts.height, row0, rows, float(eps),
+            plan.data_ptr(), target.data_ptr(), g0, gn, partial.data_ptr(),
+            out.data_ptr() if g0 == 0 else None,
+            out[1 + g0:].data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"fused train kernel launch failed: CUDA "
+                               f"error {rc}")
+        train_launches += 1
     grads, k = {}, 1
     for name, t in zip(("sph", "pln", "mat", "lgt"), tabs):
         grads[name] = out[k:k + t.numel()].view(t.shape)
@@ -449,38 +500,6 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
 # ---------------------------------------------------------------------------
 # The plain torch version (the kernel's expressions, vectorised over pixels)
 # ---------------------------------------------------------------------------
-
-# Gradients at ties follow the reference (JAX): `_max`/`_min` against a
-# tensor bound send half the gradient each way when the operands are equal
-# (torch.clamp sends all of it to x), so `_clip` gives 0.5 at a bound; `_abs`
-# has slope 1 at 0 (torch.abs: 0). Forward values are clamp's and abs's.
-_CONSTS = {}
-
-
-def _const(c, like):
-    key = (like.device, float(c))
-    t = _CONSTS.get(key)
-    if t is None:
-        t = _CONSTS[key] = torch.tensor(float(c), dtype=torch.float32,
-                                        device=like.device)
-    return t
-
-
-def _max(x, c):
-    return torch.maximum(x, _const(c, x))
-
-
-def _min(x, c):
-    return torch.minimum(x, _const(c, x))
-
-
-def _clip(x, lo, hi):
-    return _min(_max(x, lo), hi)
-
-
-def _abs(x):
-    return torch.where(x >= 0, x, -x)
-
 
 def _dot(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
@@ -612,18 +631,23 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
     """Every pixel's Whitted tree, depth first → radiance (3 tensors).
 
     Search (`plan_in` None): the winner search and the shadow sweeps; with
-    `plan_out` ([2·n_nodes, N] i32) the plan is written per node; `stats`
-    adds the shadow-sweep intersection tests the kernel makes ("shadow_s",
-    "shadow_p", "shadow_t": the kernel stops a sweep at its first occluder).
+    `plan_out` ([2·n_nodes, N] i32) the plan is written per node.
     Replay (`plan_in` = (win planes, occ planes), each [N]): the winner
     comes from the plan and only its t is recomputed (a recompute that
     misses demotes the node to a miss); the shadow bits come from the plan.
-    `stats` then counts what the train kernel evaluates: the nodes reached
-    through mirror/glass reflections and existing glass refractions of
-    valid hits ("live"), those that are valid hits by winner kind
-    ("live_s", "live_p", "live_t"), the diffuse ones ("live_diffuse") and
-    the leaves ("live_leaf") among them, and the child rays ("reflect",
-    "refract").
+
+    `stats` (a dict) adds counts of work. In both modes, the live nodes:
+    those reached through mirror/glass reflections and existing glass
+    refractions of valid hits ("live"; what the train kernel and the
+    forward's image and live-plan modes evaluate), those that are valid
+    hits by winner kind ("live_s", "live_p", "live_t"), the diffuse ones
+    ("live_diffuse") and the leaves ("live_leaf") among them, and their
+    child rays ("reflect", "refract"). In search mode also the shadow-sweep
+    intersection tests by primitive kind k, each sweep stopped at its first
+    occluder as the kernel stops it: on every node ("shadow_k": the full
+    plan's), on the live diffuse hits toward the lights with ldn ≥ 0
+    ("live_shadow_k": the live plan's), and toward those with ldn > 0
+    ("lit_shadow_k": the image's).
     """
     opts = fw.opts
     bg = tuple(float(c) for c in opts.background)
@@ -633,17 +657,19 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
     n_nodes = fw.n_nodes
     zeros = torch.zeros_like(o[0])
     dev = zeros.device
-    count = stats is not None and plan_in is not None
+    count = stats is not None
 
     def add(key, mask):
         stats[key] = stats.get(key, 0) + mask.sum()
 
-    def occluded(o, d, max_t):
+    def occluded(o, d, max_t, swept, lit):
         occ = torch.zeros_like(max_t, dtype=torch.bool)
         for p in prims:
-            if stats is not None:
-                key = "shadow_" + p["kind"]
-                stats[key] = stats.get(key, 0) + (~occ).sum()
+            if count:
+                free = ~occ
+                add("shadow_" + p["kind"], free)
+                add("live_shadow_" + p["kind"], free & swept)
+                add("lit_shadow_" + p["kind"], free & lit)
             occ = occ | (sc.t(o, d, p, t_min) < max_t)
         return occ
 
@@ -715,6 +741,7 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
                 is_gls = is_gls | msk
 
         rad = [torch.where(valid, 0.0, bg[k]) for k in range(3)]
+        is_diff = valid & ~is_mir & ~is_gls
 
         # Phong + one shadow any-hit per light, for every lane
         din = _dot(d, nrm)
@@ -733,7 +760,9 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
             ldir = tuple(lvec[k] * il for k in range(3))
             ldn = _max(_dot(ldir, nrm), 0.0)
             if plan_in is None:
-                shadowed = occluded(so, ldir, dist)
+                mld = _dot(ldir, nrm)
+                swept = live & is_diff & ~(mld < 0)
+                shadowed = occluded(so, ldir, dist, swept, swept & (mld > 0))
                 occ_acc = occ_acc | (shadowed.to(torch.int32) << li)
             else:  # the recorded shadow bit
                 shadowed = ((plan_in[1][node] >> li) & 1) != 0
@@ -748,7 +777,6 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
                 spec[k] = spec[k] + pw * lint[k]
         if plan_out is not None:
             plan_out[n_nodes + node] = occ_acc
-        is_diff = valid & ~is_mir & ~is_gls
         for k in range(3):
             local = lamt[k] * alb[k] * kd + spec[k] * ks
             rad[k] = rad[k] + torch.where(is_diff, local, 0.0)
@@ -777,7 +805,7 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
         if count:
             add("live", live)
             hit = live & valid
-            add("live_diffuse", hit & ~is_mir & ~is_gls)
+            add("live_diffuse", hit & is_diff)
             for kind in "spt":
                 add("live_" + kind, hit & torch.as_tensor(
                     [p["kind"] == kind for p in prims] + [False],
@@ -844,10 +872,11 @@ def _tree(fw: FusedWhitted, sc: _Prims, o, d, plan_in=None, plan_out=None,
 def fused_whitted_plain(fw: FusedWhitted, row0: int, rows: int, eps=0.0,
                         emit_plan: bool = False, stats=None):
     """The plain torch version of the kernel, on the object's device →
-    (image [rows, W, 3] f32, plan [2·n_nodes, rows, W] i32 or None).
+    (image [rows, W, 3] f32, plan [2·n_nodes, rows, W] i32 or None). With
+    `emit_plan` every node's entries are written: the plain version of both
+    plan modes.
 
-    With a `stats` dict, adds the shadow-sweep intersection tests the kernel
-    makes on this band (see `_tree`).
+    With a `stats` dict, adds the work counts of this band (see `_tree`).
     """
     w = fw.opts.width
     plan = (torch.empty((2 * fw.n_nodes, rows * w), dtype=torch.int32,

@@ -10,8 +10,8 @@ import math
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.ops.safemath import (cross, dot, normalize, safe_div,
-                                              safe_sqrt)
+from raytracer_tpu_torch.ops.safemath import (abs1, clip, cross, dot, maximum,
+                                              normalize, safe_div, safe_sqrt)
 
 INF = math.inf
 _DET_EPS = 1e-8
@@ -98,9 +98,9 @@ def reflect(i, n):
 
 def refract(i, n, ior):
     """Returns (t_dir, valid). valid=False on total internal reflection."""
-    cosi = torch.clamp(dot(i, n), -1.0, 1.0)
+    cosi = clip(dot(i, n), -1.0, 1.0)
     entering = cosi < 0
-    cosi_a = torch.abs(cosi)
+    cosi_a = abs1(cosi)
     etai = torch.where(entering, 1.0, ior)
     etat = torch.where(entering, ior, 1.0)
     n_o = torch.where(entering[..., None], n, -n)
@@ -113,15 +113,15 @@ def refract(i, n, ior):
 
 def fresnel(i, n, ior):
     """Unpolarized Fresnel reflectance kr; kr=1 on TIR."""
-    cosi = torch.clamp(dot(i, n), -1.0, 1.0)
+    cosi = clip(dot(i, n), -1.0, 1.0)
     entering = cosi <= 0
     etai = torch.where(entering, 1.0, ior)
     etat = torch.where(entering, ior, 1.0)
-    sint = etai / etat * safe_sqrt(torch.clamp(1.0 - cosi * cosi, min=0.0),
+    sint = etai / etat * safe_sqrt(maximum(1.0 - cosi * cosi, 0.0),
                                    valid=(1.0 - cosi * cosi) > 0)
     no_tir = sint < 1.0
-    cost = safe_sqrt(torch.clamp(1.0 - sint * sint, min=0.0), valid=no_tir)
-    cosi_a = torch.abs(cosi)
+    cost = safe_sqrt(maximum(1.0 - sint * sint, 0.0), valid=no_tir)
+    cosi_a = abs1(cosi)
     rs = safe_div(etat * cosi_a - etai * cost, etat * cosi_a + etai * cost,
                   valid=no_tir)
     rp = safe_div(etai * cosi_a - etat * cost, etai * cosi_a + etat * cost,

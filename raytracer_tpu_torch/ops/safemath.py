@@ -5,11 +5,43 @@ branch when `f` is non-differentiable there (sqrt(0), 1/0, pow(0, n),
 normalize(0)). Every op here uses the double-where guard: clamp the argument
 on the dead branch *before* the primal op so both the value and the gradient
 stay finite. Forward values equal the unguarded forms on the lanes kept.
+
+Gradients at ties follow the reference (JAX): `maximum`/`minimum` against a
+constant send half the gradient each way when the operands are equal
+(`torch.clamp` sends all of it to x), so `clip` gives 0.5 at a bound; `abs1`
+has slope 1 at 0 (`torch.abs`: 0). Forward values are clamp's and abs's.
 """
 
 import torch
 
 _EPS = 1e-12
+_CONSTS = {}
+
+
+def const(c, like):
+    """The f32 scalar tensor `c` on `like`'s device (cached)."""
+    key = (like.device, float(c))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(float(c), dtype=torch.float32,
+                                        device=like.device)
+    return t
+
+
+def maximum(x, c):
+    return torch.maximum(x, const(c, x))
+
+
+def minimum(x, c):
+    return torch.minimum(x, const(c, x))
+
+
+def clip(x, lo, hi):
+    return minimum(maximum(x, lo), hi)
+
+
+def abs1(x):
+    return torch.where(x >= 0, x, -x)
 
 
 def safe_sqrt(x, valid=None):
@@ -17,7 +49,7 @@ def safe_sqrt(x, valid=None):
     if valid is None:
         valid = x > 0
     x_safe = torch.where(valid, x, 1.0)
-    return torch.where(valid, torch.sqrt(torch.clamp(x_safe, min=_EPS)), 0.0)
+    return torch.where(valid, torch.sqrt(maximum(x_safe, _EPS)), 0.0)
 
 
 def safe_div(num, den, valid=None, fallback=0.0):
@@ -43,7 +75,7 @@ def cross(a, b):
 
 
 def norm(v):
-    return torch.sqrt(torch.clamp(dot(v, v), min=_EPS))
+    return torch.sqrt(maximum(dot(v, v), _EPS))
 
 
 def normalize(v, valid=None):
@@ -58,9 +90,9 @@ def normalize(v, valid=None):
 
 def safe_pow(base, exponent):
     """pow(max(0,base), e) with finite grad at base<=0."""
-    b = torch.clamp(base, min=1e-7)
+    b = maximum(base, 1e-7)
     return torch.where(base > 0, torch.pow(b, exponent), 0.0)
 
 
 def clamp01(x):
-    return torch.clamp(x, 0.0, 1.0)
+    return clip(x, 0.0, 1.0)

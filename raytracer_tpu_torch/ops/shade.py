@@ -10,7 +10,7 @@ import torch
 from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.ops import trace as trace_ops
 from raytracer_tpu_torch.ops.geometry import reflect
-from raytracer_tpu_torch.ops.safemath import dot, safe_pow, safe_sqrt
+from raytracer_tpu_torch.ops.safemath import dot, maximum, safe_pow, safe_sqrt
 
 
 def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
@@ -36,8 +36,8 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
         lvec = lpos[None, :] - p
         d2 = dot(lvec, lvec)
         dist = safe_sqrt(d2, valid=d2 > 0)
-        ldir = lvec / torch.clamp(dist, min=1e-12)[:, None]
-        ldn = torch.clamp(dot(ldir, n), min=0.0)
+        ldir = lvec / maximum(dist, 1e-12)[:, None]
+        ldn = maximum(dot(ldir, n), 0.0)
         # lanes facing away from the light (ldn == 0) park their shadow walk:
         # the occlusion bit only ever enters as vis·ldn, so masking them is
         # exact and roughly halves the walk's live set on curved geometry

@@ -195,3 +195,32 @@ def test_cuda_device_without_gpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tfused.FusedWhitted(*port(scene, cam, opts), device="cuda")
     assert tfused.launches == before
+
+
+LIVE_KEYS = ("live", "live_s", "live_p", "live_t", "live_diffuse",
+             "live_leaf", "reflect", "refract")
+
+
+@pytest.mark.parametrize("name,w,h,depth", [("config2", 32, 24, 2),
+                                            ("config3", 24, 24, 4)])
+def test_search_live_counts_equal_replay(name, w, h, depth):
+    """The forward's search counts the same live nodes (those whose radiance
+    reaches a pixel) as the train replay of its own plan; the shadow tests
+    of the three kernel modes nest (image ⊆ live plan ⊆ full plan)."""
+    scene, cam, opts = _opts(name, w, h, depth)
+    fw = tfused.FusedWhitted(*port(scene, cam, opts), device="cpu",
+                             param_inputs=True)
+    search, replay = {}, {}
+    img, plan = tfused.fused_whitted_plain(fw, 0, h, emit_plan=True,
+                                           stats=search)
+    n = fw.n_nodes
+    tfused.fused_train_plain(fw, 0, h, plan[:n], plan[n:], img,
+                             stats=replay)
+    for key in LIVE_KEYS:
+        assert int(search.get(key, 0)) == int(replay.get(key, 0)), key
+    assert 0 < int(search["reflect"]) and int(search["live"]) < n * h * w
+    for kind in "spt":
+        lit, live, full = (int(search.get(f"{p}shadow_{kind}", 0))
+                           for p in ("lit_", "live_", ""))
+        assert lit <= live <= full, kind
+    assert int(search["live_shadow_s"]) < int(search["shadow_s"])

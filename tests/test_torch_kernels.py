@@ -1,6 +1,7 @@
-"""PyTorch port: the CUDA kernels (grid walk, fused Whitted forward, fused
-train, the brute-force triangle searches) against their plain torch
-versions, and raygen's pixel coordinates on the card against the CPU's.
+"""PyTorch port: the CUDA kernels (grid walk, fused Whitted forward in its
+three modes, fused train, the brute-force triangle searches) against their
+plain torch versions, and raygen's pixel coordinates on the card against the
+CPU's.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the JAX package, so it also runs on a machine that has only
@@ -166,9 +167,9 @@ def test_fused_kernel_wrapper_rejects_cpu_objects():
                                             ("config5", 64, 48, None)])
 def test_fused_kernel_matches_plain(name, w, h, depth):
     fw = F.FusedWhitted(*_fused_case(name, w, h, depth), device="cuda")
-    before = F.launches
+    before = F.plan_launches
     got = fw.render_plan()
-    assert F.launches == before + 1
+    assert F.plan_launches == before + 1
     want = F.fused_whitted_plain(fw, 0, h, 0.0, emit_plan=True)
     n = fw.n_nodes
     want = (want[0], tuple(want[1][:n]), tuple(want[1][n:]))
@@ -236,13 +237,13 @@ def assert_train_agree(want, got):
         assert float((a - b).abs().max()) <= TRAIN_GRAD_TOL * scale, k
 
 
-def _train_kernel_and_plain(fw, target, row0=0, rows=None):
+def _train_kernel_and_plain(fw, target, row0=0, rows=None, launches=1):
     rows = fw.opts.height - row0 if rows is None else rows
-    img, plan = F.fused_whitted_cuda(fw, row0, rows, emit_plan=True)
+    img, plan = F.fused_whitted_cuda(fw, row0, rows, mode="plan")
     band = target[row0:row0 + rows].contiguous()
     before = F.train_launches
     got = F.fused_train_cuda(fw, row0, rows, plan, band)
-    assert F.train_launches == before + 1
+    assert F.train_launches == before + launches
     n = fw.n_nodes
     want = F.fused_train_plain(fw, row0, rows, plan[:n], plan[n:], band)
     torch.cuda.synchronize()
@@ -301,6 +302,128 @@ def test_fused_train_kernel_is_deterministic():
     assert torch.equal(l0, l1)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
+
+
+# --- the forward's modes, the gradient windows, deep chains ------------------
+
+def _bound_config5(w, h):
+    init, goal, cam, opts = presets.config5_inverse()
+    opts = dataclasses.replace(opts, width=w, height=h)
+    fw = F.FusedWhitted(init, cam, opts, device="cuda", param_inputs=True)
+    target = F.FusedWhitted(goal, cam, opts, device="cuda").render()
+    fw.bind(center=np.asarray(goal.spheres.center) + np.float32(0.05),
+            albedo=np.full((3, 3), 0.4, np.float32))
+    return fw, target.contiguous()
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("name,w,h,depth", [("config1", 96, 64, None),
+                                            ("config2", 96, 64, None),
+                                            ("config3", 64, 64, 4),
+                                            ("config5", 64, 48, None)])
+def test_fused_image_mode_equals_full_plan_image(name, w, h, depth):
+    """Tracing only the live nodes changes no pixel (the sign of a zero
+    aside, which torch.equal ignores); config5 after a bind."""
+    if name == "config5":
+        fw, _ = _bound_config5(w, h)
+    else:
+        fw = F.FusedWhitted(*_fused_case(name, w, h, depth), device="cuda")
+    before = (F.launches, F.plan_launches)
+    img = fw.render()
+    full = fw.render_plan()[0]
+    assert (F.launches, F.plan_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(img, full)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("name,w,h,depth", [("config5", 64, 48, None),
+                                            ("config2", 96, 64, 2),
+                                            ("config3", 64, 64, 4)])
+def test_live_plan_step_equals_full_plan_step(name, w, h, depth):
+    """The training step on the live plan gives the loss, gradients and
+    image of the step on the full plan, bit for bit."""
+    if name == "config5":
+        fw, target = _bound_config5(w, h)
+    else:
+        fw, target = _train_case(name, w, h, depth)
+    img, plan = F.fused_whitted_cuda(fw, 0, h, mode="plan")
+    want = F.fused_train_cuda(fw, 0, h, plan, target)
+    before = F.live_plan_launches
+    loss, grads, img_l = fw.plan_value_and_grad(target)
+    assert F.live_plan_launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(img_l, img)
+    assert torch.equal(loss, want[0])
+    for k in want[1]:
+        assert torch.equal(grads[k], want[1][k]), k
+
+
+def test_grad_windows_hold_whole_rows():
+    """The train kernel's windows: whole table rows, ≤TRAIN_GRAD_WINDOW
+    floats each, covering every float once, in order."""
+    fw = F.FusedWhitted(*presets.many_spheres(width=8, height=8),
+                        device="cpu")
+    tables = (fw.sph, fw.pln, fw.mat, fw.lgt)
+    windows = F.grad_windows(tables)
+    assert windows == [(0, 255), (255, 90)]  # 120 + 9 + 18·7 | 12·7 + 6
+    starts = np.cumsum([0] + [t.shape[1] for t in tables
+                              for _ in range(t.shape[0])])
+    assert windows[0][0] == 0 and sum(gn for _, gn in windows) == 345
+    for (g0, gn), (nxt, _) in zip(windows, windows[1:] + [(345, 0)]):
+        assert 0 < gn <= F.TRAIN_GRAD_WINDOW and g0 + gn == nxt
+        assert g0 in starts and g0 + gn in starts
+    small = F.FusedWhitted(*_fused_case("config2", 8, 8), device="cpu")
+    assert F.grad_windows((small.sph, small.pln, small.mat, small.lgt)) == [
+        (0, 12 + 9 + 28 + 12)]
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_fused_train_kernel_without_table_cap():
+    """345 table floats, over the 256 of one gradient window: two launches,
+    held to the plain version."""
+    fw = F.FusedWhitted(*presets.many_spheres(), device="cuda",
+                        param_inputs=True)
+    assert sum(t.numel() for t in (fw.sph, fw.pln, fw.mat, fw.lgt)) == 345
+    target = (fw.render() * 0.9).contiguous()
+    before = F.train_launches
+    want, got = _train_kernel_and_plain(fw, target, launches=2)
+    assert F.train_launches == before + 2
+    assert_train_agree(want, got)
+    again = F.fused_train_cuda(fw, 0, fw.opts.height,
+                               F.fused_whitted_cuda(fw, 0, fw.opts.height,
+                                                    mode="plan")[1], target)
+    assert torch.equal(again[0], got[0])
+    for k in got[1]:
+        assert torch.equal(again[1][k], got[1][k]), k
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("case", ["config2", "mirror_hall"])
+def test_fused_kernels_at_depth_40(case):
+    """Glass-free max_depth 40 (41 nodes, past the 32 on-chip levels): the
+    forward's full plan and image, and the train kernel, against the plain
+    versions."""
+    w, h = (64, 64) if case == "config2" else (48, 32)
+    scene, cam, opts = (_fused_case("config2", w, h, 40) if case == "config2"
+                        else presets.mirror_hall(w, h, 40))
+    fw = F.FusedWhitted(scene, cam, opts, device="cuda", param_inputs=True)
+    got = fw.render_plan()
+    want = F.fused_whitted_plain(fw, 0, h, 0.0, emit_plan=True)
+    n = fw.n_nodes
+    assert n == 41
+    assert_fused_agree((want[0], tuple(want[1][:n]), tuple(want[1][n:])),
+                       got)
+    assert torch.equal(fw.render(), got[0])
+    target = (got[0] * 0.9).contiguous()
+    assert_train_agree(*_train_kernel_and_plain(fw, target))
+    if case == "mirror_hall":  # the deep levels were reached
+        stats = {}
+        F.fused_whitted_plain(fw, 0, h, stats=stats)
+        assert int(stats["live_leaf"]) > h * w // 4
 
 
 # --- brute-force triangle search (K3: tri_trace.cu, K4: mat_trace.cu) --------
