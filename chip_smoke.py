@@ -5,10 +5,13 @@
 Builds the CUDA kernels from raytracer_tpu_torch/csrc (one nvcc per source,
 in parallel) and prints their ptxas register/spill report. Then, per kernel:
 
-- grid walk (K5): kernel vs plain version on config4's rays at 1920×1080,
+- grid walk (K5): kernel vs plain version on config4's rays at 1920×1080
+  (bit-equality reported), each walk set's time with its walking lanes,
+  cell visits, candidates and the lane efficiency of its candidate loops,
   the config4 and config7 goldens on the card, and the main path
   (load_scene_cli → build_tracer("auto") → render_banded) on config4 at
-  1920×1080, depth 4, checking that the walk kernel carried it;
+  1920×1080, depth 4, checking that the walk kernel carried it, with the
+  frame's walk launches read from the profiler;
 - fused Whitted forward (K1), in its three modes (image: the live nodes
   only; live plan; full plan): the full plan vs the plain version (image
   and plan planes) on config1 256², config2 1920×1080 d2, config3 1024² d4
@@ -24,14 +27,15 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   target), config2 1920×1080 d2 and config3 1024² d4, its loss against the
   L2 of its own forward image, two runs bit-equal, and the training step on
   the live plan (`plan_value_and_grad`) bit-equal to the step on the full
-  plan; a 30-sphere scene of 345 table floats (two gradient windows) and
+  plan; a 30-sphere scene of 345 table floats (one launch) and
   glass-free max_depth 40 (config2 256², and config2 between two mirror
   planes, whose chains pass the kernels' on-chip levels), K1 and K2 against
   the plain versions; central differences of two parameters at config2
   256² d2 and config3 96² d4; the main path `cli optimize --kernel --steps
   30` on config5 128², checking that the loss falls and that it made 30
-  train and 30 live-plan launches; kernel, training step (live plan +
-  train) and plain times on the two bench frames;
+  train and 30 live-plan launches; kernel (and its reduction alone),
+  training step (live plan + train) and plain times on the two bench
+  frames;
 - brute-force triangle searches (K3: tri_nearest/tri_occluded, K4:
   mat_nearest/mat_occluded): kernel vs plain version on config4's 1080p ray
   sets, the two against each other and against the grid walk kernel; the
@@ -107,9 +111,12 @@ K2_OPS = {"pixel": 55, "node": (11, 34), "sphere": (40, 131),
           "refract": (50, 92)}
 # grid walk: Möller–Trumbore per tested candidate; DDA step per cell visit
 K5_OPS = {"candidate": 46, "visit": 3}
-# walk bytes per ray: orig, dir, cell, tmax, step, tdelta (12 each), active
-# (1), best_t/best_i in (8), t/idx out (8); occlusion adds max_t (4)
-K5_RAY_BYTES, K5_OCCL_BYTES = 89, 4
+# walk bytes per lane that walks: orig, dir, cell, tmax, step, tdelta (12
+# each), active (1), best_t/best_i in (8), t/idx out (8); occlusion adds
+# max_t (4). A lane that does not walk reads active, best_t and best_i and
+# writes t and idx (17). The table counts its listed triangles once per
+# launch, 40 bytes each (v0|e1|e2|id), whatever the layout.
+K5_RAY_BYTES, K5_OCCL_BYTES, K5_IDLE_BYTES, K5_SLOT_BYTES = 89, 4, 17, 40
 # brute-force searches, per ray–triangle test: K3 is the walk's
 # Möller–Trumbore (csrc/tri_trace.cu). K4 counts what the function needs,
 # not the kernel's 76 + 6: build_tri_weights leaves 3 of the 10 weight rows
@@ -162,6 +169,25 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_ms(fn, key: str) -> float:
+    """Device milliseconds of one run of `fn()` spent in kernels whose names
+    contain `key`, from torch.profiler, after a warm-up run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if key in evt.key:
+            us = getattr(evt, "device_time_total", None)
+            total += (evt.cuda_time_total if us is None else us) / 1e3
+    return total
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -230,10 +256,27 @@ def walk_ray_sets(scene, cam, opts, tracer, device):
     return sets
 
 
+def lane_efficiency(cands):
+    """The share of lane slots that the candidate loops keep busy in the
+    kernel's lane order (a warp = 32 consecutive lanes of a launch, in
+    pixel order), as (Σ candidates, Σ 32 × the warp's most). `cands` [N]:
+    each lane's candidates (0 where a lane does not walk)."""
+    import torch
+
+    key = torch.arange(cands.shape[0], device=cands.device) // 32
+    most = torch.zeros(int(key.max()) + 1, dtype=cands.dtype,
+                       device=cands.device)
+    most.scatter_reduce_(0, key, cands, "amax")
+    return float(cands.sum()), 32.0 * float(most.sum())
+
+
 def kernel_phase(scene, cam, opts, tracer, device):
     """Kernel vs plain version on the config4 ray sets → (max |Δt|, ms,
-    plain ms). The times walk the four sets the render walks once, in
-    launches of the render's tile size, from precomputed walk_init states."""
+    plain ms, bound ms, bound by). The times walk the four sets the render
+    walks once, in launches of the render's tile size, from precomputed
+    walk_init states; each set is also timed alone, with the work it needs
+    (walking lanes, cell visits, candidates) and the lane efficiency of its
+    candidate loops in the warps that walk."""
     import torch
 
     from raytracer_tpu_torch.accel.grid import walk_init
@@ -251,45 +294,68 @@ def kernel_phase(scene, cam, opts, tracer, device):
         ref = W.grid_walk_reference(grid, table, o, d, opts.t_min, mx, act)
         torch.cuda.synchronize()
         err = max(err, compare_walks(name, ref, got, mx))
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        print(f"  bit-equal to the plain walk: {same}", flush=True)
         if act is not None:
             assert bool(torch.isinf(got[0][~act]).all()), f"{name}: masked lane hit"
 
     tile = opts.tile_rays
-    pieces = []
-    for _, o, d, mx, act in sets[:-1]:  # the four sets the render walks
+    listed = int((grid.cell_soa[..., 9] != grid.n_tris).sum())
+    by_set = {}
+    for name, o, d, mx, act in sets[:-1]:  # the four sets the render walks
+        by_set[name] = []
         for s in range(0, o.shape[0], tile):
-            pieces.append((o[s:s + tile].contiguous(), d[s:s + tile].contiguous(),
-                           None if mx is None else mx[s:s + tile].contiguous(),
-                           None if act is None else act[s:s + tile]))
-    states = [walk_init(grid, o, d, opts.t_min, a)
-              for o, d, _, a in pieces]
+            po, pd = o[s:s + tile].contiguous(), d[s:s + tile].contiguous()
+            pm = None if mx is None else mx[s:s + tile].contiguous()
+            pa = None if act is None else act[s:s + tile]
+            by_set[name].append((po, pd, pm, walk_init(grid, po, pd,
+                                                       opts.t_min, pa)))
+    pieces = [p for ps in by_set.values() for p in ps]
 
-    def run_kernel():
-        for (o, d, mx, _), st in zip(pieces, states):
-            W.grid_walk_cuda(grid, table, o, d, st, opts.t_min, mx)
+    def run(walk, ps):
+        for o, d, mx, st in ps:
+            walk(grid, table, o, d, st, opts.t_min, mx)
 
-    def run_plain():
-        for (o, d, mx, _), st in zip(pieces, states):
-            W.grid_walk_plain(grid, table, o, d, st, opts.t_min, mx)
-
-    ms = cuda_ms(run_kernel, 5)
-    plain_ms = cuda_ms(run_plain, 1)
+    ms = cuda_ms(lambda: run(W.grid_walk_cuda, pieces), 5)
+    plain_ms = cuda_ms(lambda: run(W.grid_walk_plain, pieces), 1)
     # the bound: the work these rays need, counted with the plain walk
-    stats = {}
-    for (o, d, mx, _), st in zip(pieces, states):
-        W.grid_walk_plain(grid, table, o, d, st, opts.t_min, mx, stats=stats)
-    cands, visits = float(stats["candidates"]), float(stats["visits"])
+    cands = visits = nbytes = 0.0
+    for name, ps in by_set.items():
+        set_ms = cuda_ms(lambda: run(W.grid_walk_cuda, ps), 5)
+        n = walking = v = c = busy = slots = 0
+        for o, d, mx, st in ps:
+            stats = {}
+            W.grid_walk_plain(grid, table, o, d, st, opts.t_min, mx,
+                              stats=stats)
+            lanes = torch.nonzero(st[6]).squeeze(1)
+            per_lane = stats.get("lane_candidates", torch.zeros(
+                o.shape[0], dtype=torch.int64, device=o.device))
+            b, sl = lane_efficiency(per_lane)
+            busy += b
+            slots += sl
+            n += o.shape[0]
+            walking += lanes.shape[0]
+            v += float(stats.get("visits", 0))
+            c += float(stats.get("candidates", 0))
+            nbytes += listed * K5_SLOT_BYTES + lanes.shape[0] * (
+                K5_RAY_BYTES + (K5_OCCL_BYTES if mx is not None else 0)) + (
+                o.shape[0] - lanes.shape[0]) * K5_IDLE_BYTES
+        cands += c
+        visits += v
+        print(f"walk set {name}: kernel {set_ms:.4f} ms over {len(ps)} "
+              f"launches; {walking} of {n} lanes walk, {v:.6g} cell visits, "
+              f"{c:.6g} candidates; lane efficiency of the candidate loops "
+              f"in the warps that walk (32 lanes in pixel order) "
+              f"{busy / slots if slots else 0.0:.1%}", flush=True)
     ops = K5_OPS["candidate"] * cands + K5_OPS["visit"] * visits
-    nbytes = sum(table.numel() * 4 + o.shape[0] * (
-        K5_RAY_BYTES + (K5_OCCL_BYTES if mx is not None else 0))
-        for o, _, mx, _ in pieces)
     b_ms, b_by = bound_ms(ops, nbytes)
     print(f"walk over {sum(p[0].shape[0] for p in pieces)} rays in "
           f"{len(pieces)} launches of ≤{tile}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms; {visits:.6g} cell visits, {cands:.6g} "
           f"candidates tested, {ops:.6g} ops, {nbytes:.6g} bytes "
-          f"(table {table.numel() * 4} B per launch) → bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
+          f"({listed} listed triangles, {listed * K5_SLOT_BYTES} B of table "
+          f"per launch) → bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of "
+          "bound", flush=True)
     return err, ms, plain_ms, b_ms, b_by
 
 
@@ -635,7 +701,8 @@ def train_compare(tag, fw, target):
     assert abs(lk - own) <= TRAIN_LOSS_RTOL * abs(own), msg
     assert max(errs.values()) <= TRAIN_GRAD_TOL, msg
     assert same and live, msg
-    assert launches == len(F.grad_windows((fw.sph, fw.pln, fw.mat, fw.lgt))), msg
+    assert launches == len(F.grad_windows((fw.sph, fw.pln, fw.mat, fw.lgt),
+                                          F.train_window(fw))), msg
     return err, plain_ms
 
 
@@ -659,14 +726,22 @@ def limit_case(name, device):
 
 
 def repairs_phase(device):
-    """K2 over 345 table floats (two gradient windows), and K1 (full plan,
-    image, live plan) and K2 at glass-free max_depth 40, against the plain
+    """K2 over 345 table floats (one launch), and K1 (full plan, image,
+    live plan) and K2 at glass-free max_depth 40, against the plain
     versions → (K1 errors by mode, K2 error)."""
     from raytracer_tpu_torch.ops import fused as F
 
     fw, target = limit_case("spheres", device)
     n_grads = sum(t.numel() for t in (fw.sph, fw.pln, fw.mat, fw.lgt))
-    assert n_grads == 345 > F.TRAIN_GRAD_WINDOW, n_grads
+    assert n_grads == 345, n_grads
+    before = F.train_launches
+    F.fused_train_cuda(fw, 0, fw.opts.height,
+                       F.fused_whitted_cuda(fw, 0, fw.opts.height,
+                                            mode="plan")[1], target)
+    launches = F.train_launches - before
+    print(f"K2 launches for the {n_grads}-float scene: {launches} (window "
+          f"{F.train_window(fw)} table floats)", flush=True)
+    assert launches == 1, launches
     k2_err, _ = train_compare(f"30 spheres, {n_grads} table floats, 256x192 "
                               "d2", fw, target)
     k1_err = {m: 0.0 for m in K1_MODES}
@@ -770,15 +845,29 @@ def optimize_main_path():
 
 
 def train_times(tag, fw, target):
-    """Kernel and training-step times of one full frame, and the work the
-    train kernel must do there → (ms, step ms, ops, bytes). The step is
+    """Kernel and training-step times of one full frame (the reduction also
+    alone, and the train kernel as the rest), and the work the train kernel
+    must do there → (ms, step ms, ops, bytes). The step is
     `plan_value_and_grad` (the live plan, then K2); the step on the full
     plan (render_plan's K1, then K2) is timed beside it."""
+    import torch
+
+    from raytracer_tpu_torch.kernels.build import load_library
     from raytracer_tpu_torch.ops import fused as F
 
     h, w = fw.opts.height, fw.opts.width
     _, plan = F.fused_whitted_cuda(fw, 0, h, mode="live_plan")
     ms = cuda_ms(lambda: F.fused_train_cuda(fw, 0, h, plan, target), 5)
+    # the reduction alone, on partial rows of this frame's shape
+    lib = load_library()
+    n_blocks = lib.rt_fused_train_blocks(w, h)
+    n_out = 1 + sum(t.numel() for t in (fw.sph, fw.pln, fw.mat, fw.lgt))
+    partial = torch.zeros((n_blocks, n_out), device=target.device)
+    out = torch.empty((n_out,), device=target.device)
+    stream = torch.cuda.current_stream(target.device).cuda_stream
+    red_ms = cuda_ms(lambda: lib.rt_fused_train_reduce(
+        partial.data_ptr(), n_blocks, n_out, out.data_ptr(),
+        out[1:].data_ptr(), stream), 20)
     step_ms = cuda_ms(lambda: fw.plan_value_and_grad(target), 5)
     full_ms = cuda_ms(lambda: F.fused_train_cuda(
         fw, 0, h, F.fused_whitted_cuda(fw, 0, h, mode="plan")[1], target), 5)
@@ -788,8 +877,10 @@ def train_times(tag, fw, target):
     ops, nbytes = train_ops(fw, h * w, stats), train_bytes(fw, h * w, stats)
     b_ms, b_by = bound_ms(ops, nbytes)
     counts = ", ".join(f"{k} {int(v)}" for k, v in sorted(stats.items()))
-    print(f"{tag}: train kernel {ms:.4f} ms, training step (live plan + "
-          f"train) {step_ms:.4f} ms, on the full plan {full_ms:.4f} ms; "
+    print(f"{tag}: K2 {ms:.4f} ms = train kernel {ms - red_ms:.4f} ms + "
+          f"reduction {red_ms:.4f} ms (timed alone over {n_blocks} partial "
+          f"rows of {n_out} floats), training step (live plan + train) "
+          f"{step_ms:.4f} ms, on the full plan {full_ms:.4f} ms; "
           f"bound {b_ms:.4f} ms ({b_by}: {ops:.6g} ops, {nbytes:.6g} bytes; "
           f"{counts})", flush=True)
     return ms, step_ms, ops, nbytes
@@ -1118,6 +1209,10 @@ def main() -> int:
           f"{launches} walk launches, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     assert launches > 0, "the main path never launched the walk kernel"
+    walk_frame = profile_ms(lambda: render_banded(
+        scene, cam, opts, device=device, tracer=tracer), "grid_walk_kernel")
+    print(f"walk kernel over one frame's {launches} launches (profiler): "
+          f"{walk_frame:.4f} ms", flush=True)
     assert tuple(img.shape) == (opts.height, opts.width, 3), img.shape
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0

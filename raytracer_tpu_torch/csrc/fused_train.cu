@@ -1,6 +1,7 @@
-// Fused train kernel — one thread per pixel replays the pixel's Whitted tree
-// from the recorded plan (per node: the winner id, −1 = miss, and the
-// per-light shadow bitmask), forms the pixel's L2 loss
+// Fused train kernel — a thread replays its pixels' Whitted trees (several
+// pixels per thread in a large frame) from the recorded plan (per node: the
+// winner id, −1 = miss, and the per-light shadow bitmask), forms each
+// pixel's L2 loss
 // Σ_k (clip(rad_k, 0, 1) − target_k)² and its gradient with respect to the
 // four live tables (sph [S,4] center|radius, pln [P,9] point|normal|albedo2,
 // mat [M,7] albedo|kd|ks|spec_n|ior, lgt [L,6] pos|intensity). A second small
@@ -18,10 +19,12 @@
 // gradients: max/min and clip send half to each side when the operands are
 // equal, |x| has slope 1 at 0.
 //
-// One launch accumulates one window of at most kGradWindow table floats (an
-// offset and a count, whole table rows): the wrapper launches once per
-// window, so no table size is refused, and each launch replays the whole
-// tree. The loss comes from the first window's launch.
+// One launch accumulates one window of table floats (an offset and a count,
+// whole table rows). The window is the whole table whenever the block's
+// gradient sums fit the 227 KB of shared memory beside the scene (about 440
+// table floats): one launch. Past that the wrapper launches once per window,
+// each replaying the whole tree, so no table size is refused; the loss comes
+// from the first window's launch.
 //
 // Per pixel, two sweeps over the node store (one slot per tree node, indexed
 // as the plan: node (depth b, path p) at 2^b − 1 + p with glass, b without):
@@ -45,14 +48,34 @@
 //
 // What bounds it on this card: neither its bytes nor its arithmetic come
 // near the card's rates. A pixel reads 8 bytes per live plan node and 12 of
-// target, and writes nothing but its share of a [n_blocks, 1 + window]
-// partial; the work is one intersection recompute, the shading and the
-// fresnel/ray algebra per live node, forward and backward. The node store
-// (12 floats per node: 63 nodes with glass, kChainLevels without; deeper
-// chain nodes in a scratch buffer the wrapper allocates, [nodes, 12,
-// pixels]) and the window's gradient accumulators are indexed at run time,
-// so they live in local memory (L1/L2-cached). Not tuned: a first kernel that
-// is right.
+// target; the work is one intersection recompute, the shading and the
+// fresnel/ray algebra per live node, forward and backward. Done per pixel,
+// the work around the adjoint (zeroing a window of gradient accumulators in
+// local memory, a shuffle tree per window float, a partial row per 128
+// pixels) took half of config2's time and a fifth of config3's on the H100
+// (PERF.md §6). The design:
+//   - the gradient sums live in shared memory, a column per thread (float j
+//     of thread t at acc[j · kTrainThreads + t]: a warp's 32 lanes hit 32
+//     banks whichever floats they add to). Each thread adds its own pixels
+//     in its own column, in pixel order: no atomics, and the sums' order is
+//     fixed by the data;
+//   - a launch has at most kTrainBlocks blocks (whole waves on 132 SMs) and
+//     each thread replays the pixels k, k + T, … (T threads in the launch),
+//     so the zeroing, the block's sums (a shuffle tree per float per warp,
+//     then the warps in turn) and the partial rows are paid per block, not
+//     per pixel: at 1080p 3,168 partial rows, not 16,200;
+//   - the reduction reads partial rows with a warp on 32 consecutive floats,
+//     32 rows of a column in parallel and 8 rows' loads in flight, then a
+//     fixed tree.
+// The glass kernel wants ~148 registers with the pixel loop (127 with one
+// pixel per thread); kTrainMinBlocks caps it at 128 (60 bytes of spills) to
+// keep 4 blocks per SM. On config3 it stays a few percent slower than one
+// pixel per thread with local-memory sums; neither bank conflicts nor the
+// shared memory's share of L1 explained it (PERF.md §6).
+// The node store (12 floats per node: 63 nodes with glass, kChainLevels
+// without; deeper chain nodes in a scratch buffer the wrapper allocates,
+// [nodes, 12, pixels]) is indexed at run time and stays in local memory
+// (L1-cached): with pruning most pixels touch one or two nodes.
 //
 // Build: as fused_whitted.cu (kernels/build.py; --fmad=false).
 
@@ -60,12 +83,16 @@
 
 namespace {
 
-constexpr int kTrainBlockX = 32;
-constexpr int kTrainBlockY = 4;
-constexpr int kTrainThreads = kTrainBlockX * kTrainBlockY;
+constexpr int kTrainThreads = 128;
 constexpr int kTrainWarps = kTrainThreads / 32;
-constexpr int kGradWindow = 256;  // table floats accumulated per launch
-constexpr int kReduceThreads = 256;
+// 4 blocks per SM: at most 128 registers a thread (the glass kernel would
+// take 148, and 3 blocks)
+constexpr int kTrainMinBlocks = 4;
+// blocks of one launch: whole waves on the H100's 132 SMs
+constexpr int kTrainBlocks = 24 * 132;
+// shared memory a block may take on Hopper (227 KB, dynamic only)
+constexpr int kTrainSmemBytes = 232448;
+constexpr int kReduceX = 32, kReduceY = 32, kReduceLoads = 8;
 
 // d max(x, c)/dx with the reference's tie rule (also max(c, x)).
 __device__ __forceinline__ float tie_max(float x, float c) {
@@ -88,17 +115,29 @@ struct GradOff {
 
 constexpr int kMaxRow = 9;  // the widest table row (a plane's)
 
+// A table row's accumulators in a thread's column of the shared gradient
+// sums: float k of the row at p[k · kTrainThreads].
+struct AccRow {
+  float* p;
+  __device__ __forceinline__ float& operator[](int k) const {
+    return p[k * kTrainThreads];
+  }
+  __device__ __forceinline__ AccRow operator+(int k) const {
+    return {p + k * kTrainThreads};
+  }
+};
+
 // A thread's accumulators for the launch's window [lo, lo + n) of table
-// floats, which holds whole table rows: g[0] the loss, g[1 + j − lo] the
-// gradient of table float j, and past them a row-wide sink.
+// floats, which holds whole table rows: g[0] the loss, float 1 + j − lo of
+// the column the gradient of table float j, and past them a row-wide sink.
 struct GradWin {
-  float* g;
+  float* g;  // the thread's column: float j at g[j · kTrainThreads]
   int lo, n;
   // the accumulators of the table row that starts at float `base` (the
   // sink when the row lies outside the window)
-  __device__ __forceinline__ float* row(int base) const {
+  __device__ __forceinline__ AccRow row(int base) const {
     const unsigned k = static_cast<unsigned>(base - lo);
-    return g + 1 + (k < static_cast<unsigned>(n) ? k : n);
+    return {g + (1 + (k < static_cast<unsigned>(n) ? k : n)) * kTrainThreads};
   }
 };
 
@@ -106,7 +145,7 @@ struct GradWin {
 // center/radius gradients (gs[0..3]) for dL/dt = tb.
 __device__ void sphere_t_bwd(const float* o, const float* d, const float* sp,
                              float t_min, float tb, float* ob, float* db,
-                             float* gs) {
+                             AccRow gs) {
   const float L[3] = {o[0] - sp[0], o[1] - sp[1], o[2] - sp[2]};
   const float r = sp[3];
   const float a = dot3(d, d);
@@ -154,7 +193,7 @@ __device__ void sphere_t_bwd(const float* o, const float* d, const float* sp,
 
 // Adjoint of plane_t at a finite t: dL/do, dL/dd, point and normal (gp[0..5]).
 __device__ void plane_t_bwd(const float* o, const float* d, const float* pl,
-                            float tb, float* ob, float* db, float* gp) {
+                            float tb, float* ob, float* db, AccRow gp) {
   const float* n = pl + 3;
   const float denom = d[0] * n[0] + d[1] * n[1] + d[2] * n[2];
   const float num = (pl[0] - o[0]) * n[0] + (pl[1] - o[1]) * n[1] +
@@ -272,7 +311,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   float db[3] = {0.0f, 0.0f, 0.0f}, ob[3] = {0.0f, 0.0f, 0.0f};
   float albb[3] = {0.0f, 0.0f, 0.0f};
   float kdb = 0.0f, ksb = 0.0f, snb = 0.0f, iorb = 0.0f, dinb = 0.0f;
-  float* gm = g.row(go.mat + 7 * n.m);
+  const AccRow gm = g.row(go.mat + 7 * n.m);
   if (n.diff) {
     float lamtb[3], specb[3];
     for (int k = 0; k < 3; ++k) {
@@ -285,7 +324,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
     for (int li = 0; li < s.nl; ++li) {
       const float* lpos = s.lgt + 6 * li;
       const float* lint = lpos + 3;
-      float* gl = g.row(go.lgt + 6 * li);
+      const AccRow gl = g.row(go.lgt + 6 * li);
       const LightDir l = light_dir(lpos, n.p);
       const float mld = dot3(l.ldir, nrm);
       const float ldn = fmaxf(0.0f, mld);
@@ -429,7 +468,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   }
   // winner attributes → the tables
   if (n.pat) {
-    float* ga2 = g.row(go.pln + 9 * (win - ns)) + 6;
+    const AccRow ga2 = g.row(go.pln + 9 * (win - ns)) + 6;
     for (int k = 0; k < 3; ++k) ga2[k] += albb[k];
   } else {
     for (int k = 0; k < 3; ++k) gm[k] += albb[k];
@@ -439,7 +478,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
   gm[5] += snb;
   gm[6] += iorb;
   if (win < ns) {
-    float* gs = g.row(go.sph + 4 * win);
+    const AccRow gs = g.row(go.sph + 4 * win);
     const float* cc = s.sph + 4 * win;
     float invrb = 0.0f;
     for (int k = 0; k < 3; ++k) {
@@ -449,7 +488,7 @@ __device__ void train_node(const SceneView& s, const float* o, const float* d,
     }
     gs[3] -= invrb * n.inv_r * n.inv_r;
   } else if (win < ns + np) {
-    float* gp = g.row(go.pln + 9 * (win - ns));
+    const AccRow gp = g.row(go.pln + 9 * (win - ns));
     for (int k = 0; k < 3; ++k) gp[3 + k] += nb[k];
   }
   // p = o + t·d, t recomputed from (o, d) and the winner's table row
@@ -630,8 +669,14 @@ __device__ void train_pixel(const SceneView& s, const float* o0,
 
 // ---- kernels ---------------------------------------------------------------
 
+// Shared-memory float offset of the gradient rows, past the staged scene.
+__host__ __device__ inline int acc_offset(int ns, int np, int nt, int nm,
+                                          int nl) {
+  return static_cast<int>((scene_smem_bytes(ns, np, nt, nm, nl) + 15) / 16 * 4);
+}
+
 template <bool kGlass, bool kDeep>
-__global__ void __launch_bounds__(kTrainThreads)
+__global__ void __launch_bounds__(kTrainThreads, kTrainMinBlocks)
 fused_train_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ pln_g,
                    const float* __restrict__ mat_g,
@@ -639,86 +684,110 @@ fused_train_kernel(const float* __restrict__ sph_g,
                    const float* __restrict__ stat_g,
                    const int* __restrict__ ids_g,
                    const float* __restrict__ cam_g, GradOff go, int g0,
-                   int gn, int ns, int np, int nt, int nm, int nl, int max_depth,
-                   float t_min, float bias, float bg_r, float bg_g, float bg_b,
-                   int width, int height, int row0, int rows, float eps,
-                   const int* __restrict__ plan,
+                   int gn, int ns, int np, int nt, int nm, int nl,
+                   int max_depth, float t_min, float bias, float bg_r,
+                   float bg_g, float bg_b, int width, int height, int row0,
+                   int rows, float eps, const int* __restrict__ plan,
                    const float* __restrict__ target,
                    float* __restrict__ partial, float* __restrict__ scratch) {
   extern __shared__ float smem[];
-  __shared__ float red[kTrainWarps][kGradWindow + 1];
   const float* cam;
   const SceneView s =
       stage_scene(smem, sph_g, pln_g, mat_g, lgt_g, stat_g, ids_g, cam_g, ns,
                   np, nt, nm, nl, t_min, bias, &cam);
+  // the gradient sums (GradWin), a column per thread: float j of thread t
+  // at acc[j · kTrainThreads + t], so a warp's 32 lanes hit 32 banks
+  // whichever floats they add to
+  float* acc = smem + acc_offset(ns, np, nt, nm, nl);
+  const int tid = threadIdx.x;
+  float* g = acc + tid;
+  for (int j = 0; j < gn + 1 + kMaxRow; ++j) g[j * kTrainThreads] = 0.0f;
   __syncthreads();
 
-  const int n_out = gn + 1;
-  float g[1 + kGradWindow + kMaxRow];  // the window, then a sink (GradWin)
-  for (int j = 0; j < n_out + kMaxRow; ++j) g[j] = 0.0f;
   const GradWin gw{g, g0, gn};
-  const int col = blockIdx.x * kTrainBlockX + threadIdx.x;
-  const int r = blockIdx.y * kTrainBlockY + threadIdx.y;
-  if (col < width && r < rows) {  // threads past the band add nothing
-    const float bg[3] = {bg_r, bg_g, bg_b};
+  const float bg[3] = {bg_r, bg_g, bg_b};
+  const int n_px = rows * width;
+  // a fixed assignment: thread k of the launch replays pixels k, k + T, …
+  const int T = gridDim.x * kTrainThreads;
+  for (int px = blockIdx.x * kTrainThreads + tid; px < n_px; px += T) {
+    const int r = px / width, col = px - r * width;
     float o[3], d[3];
     eye_ray(cam, row0 + r, col, width, height, eps, o, d);
-    const size_t px = static_cast<size_t>(r) * width + col;
-    train_pixel<kGlass, kDeep>(s, o, d, plan,
-                               static_cast<size_t>(rows) * width, px,
-                               max_depth, bg, target + 3 * px, gw, go,
+    train_pixel<kGlass, kDeep>(s, o, d, plan, static_cast<size_t>(n_px),
+                               static_cast<size_t>(px), max_depth, bg,
+                               target + 3 * static_cast<size_t>(px), gw, go,
                                scratch);
   }
-  // the block's sums, in a fixed order: a shuffle tree per warp, then the
-  // warps in turn
-  const int tid = threadIdx.y * kTrainBlockX + threadIdx.x;
+
+  // the block's sums, in a fixed order: per float, a shuffle tree over each
+  // warp's lanes into its lane 0's slot, then the warps in turn
   const int lane = tid & 31, warp = tid >> 5;
+  const int n_out = gn + 1;
   for (int j = 0; j < n_out; ++j) {
-    float v = g[j];
+    float v = g[j * kTrainThreads];
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][j] = v;
+    if (lane == 0) g[j * kTrainThreads] = v;
   }
   __syncthreads();
-  const size_t block = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   for (int j = tid; j < n_out; j += kTrainThreads) {
-    float v = red[0][j];
-    for (int w = 1; w < kTrainWarps; ++w) v += red[w][j];
-    partial[block * n_out + j] = v;
+    float v = acc[j * kTrainThreads];
+    for (int w = 1; w < kTrainWarps; ++w) v += acc[j * kTrainThreads + 32 * w];
+    partial[static_cast<size_t>(blockIdx.x) * n_out + j] = v;
   }
 }
 
-// Σ_b partial[b, j]: one block per column, each thread a strided run of
-// blocks in order, then a fixed tree. Column 0 (the loss) goes to *loss_out
-// when that is not null, column j ≥ 1 to grad_out[j − 1].
-__global__ void __launch_bounds__(kReduceThreads)
+// Σ_b partial[b, j]: a block of kReduceX columns × kReduceY threads; thread
+// (x, y) adds rows y, y + kReduceY, … of column j in order (a warp reads 32
+// consecutive floats of a row; kReduceLoads rows in flight), then a fixed
+// tree over y. Column 0 (the
+// loss) goes to *loss_out when that is not null, column j ≥ 1 to
+// grad_out[j − 1].
+__global__ void __launch_bounds__(kReduceX * kReduceY)
 reduce_partials(const float* __restrict__ partial, int n_blocks, int n_out,
                 float* __restrict__ loss_out, float* __restrict__ grad_out) {
-  __shared__ float buf[kReduceThreads];
-  const int j = blockIdx.x;
+  __shared__ float buf[kReduceY][kReduceX + 1];
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int j = blockIdx.x * kReduceX + x;
   float v = 0.0f;
-  for (int b = threadIdx.x; b < n_blocks; b += kReduceThreads)
-    v += partial[static_cast<size_t>(b) * n_out + j];
-  buf[threadIdx.x] = v;
+  if (j < n_out) {
+    // kReduceLoads rows' loads in flight, added in row order
+    int b = y;
+    for (; b + (kReduceLoads - 1) * kReduceY < n_blocks;
+         b += kReduceLoads * kReduceY) {
+      float r[kReduceLoads];
+#pragma unroll
+      for (int q = 0; q < kReduceLoads; ++q)
+        r[q] = partial[static_cast<size_t>(b + q * kReduceY) * n_out + j];
+#pragma unroll
+      for (int q = 0; q < kReduceLoads; ++q) v += r[q];
+    }
+    for (; b < n_blocks; b += kReduceY)
+      v += partial[static_cast<size_t>(b) * n_out + j];
+  }
+  buf[y][x] = v;
   __syncthreads();
-  for (int half = kReduceThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
+  for (int half = kReduceY / 2; half > 0; half >>= 1) {
+    if (y < half) buf[y][x] += buf[y + half][x];
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
+  if (y == 0 && j < n_out) {
     if (j > 0)
-      grad_out[j - 1] = buf[0];
+      grad_out[j - 1] = buf[0][x];
     else if (loss_out)
-      *loss_out = buf[0];
+      *loss_out = buf[0][x];
   }
 }
 
 }  // namespace
 
-// Number of blocks (rows of `partial`) a launch over a band uses.
+// Number of blocks (rows of `partial`) a launch over a band uses: one per
+// kTrainThreads pixels, at most kTrainBlocks (then each thread replays
+// several pixels).
 extern "C" int rt_fused_train_blocks(int width, int rows) {
-  return ((width + kTrainBlockX - 1) / kTrainBlockX) *
-         ((rows + kTrainBlockY - 1) / kTrainBlockY);
+  const long long px = static_cast<long long>(width) * rows;
+  const long long blocks = (px + kTrainThreads - 1) / kTrainThreads;
+  return static_cast<int>(blocks < kTrainBlocks ? blocks : kTrainBlocks);
 }
 
 // Nodes per pixel a launch keeps in the scratch buffer (12 floats each): 0
@@ -729,25 +798,27 @@ extern "C" int rt_fused_train_deep_nodes(int max_depth, int glass) {
                                                : 0);
 }
 
-// Plain C entry for ctypes. Launches the train kernel and the reduction on
-// `stream` for the window [g0, g0 + gn) of the gradient vector (gn ≤
-// kGradWindow; whole table rows), does not synchronise, and returns cudaGetLastError() (0 on
-// success). `hs, hp, hm, hl`: the tables' heights (padded); `plan`:
-// [2·n_nodes, rows, width] i32 (only the live nodes' entries are read);
-// `target`: [rows, width, 3] f32; `partial`: [rt_fused_train_blocks(width,
-// rows), 1 + gn] f32 scratch; `loss_out`: the loss, or null; `grad_out`: the
-// window's gn gradients (the four tables' floats in order, from g0);
-// `scratch`: [rt_fused_train_deep_nodes, 12, rows, width] f32, or null when
-// that is 0.
+// Plain C entry for ctypes. Launches the train kernel on `stream` for the
+// window [g0, g0 + gn) of the gradient vector (whole table rows; the scene
+// and kTrainThreads rows of (1 + gn + kMaxRow) | 1 floats must fit
+// kTrainSmemBytes of shared memory), writing one row of `partial` per block;
+// rt_fused_train_reduce then sums them. Does not synchronise; returns
+// cudaGetLastError() (0 on success). `hs, hp, hm, hl`: the tables' heights
+// (padded); `plan`: [2·n_nodes, rows, width] i32 (only the live nodes'
+// entries are read); `target`: [rows, width, 3] f32; `partial`:
+// [rt_fused_train_blocks(width, rows), 1 + gn] f32 scratch; `scratch`:
+// [rt_fused_train_deep_nodes, 12, rows, width] f32, or null when that is 0.
 extern "C" int rt_fused_train(
     const void* sph, const void* pln, const void* mat, const void* lgt,
     const void* stat, const void* ids, const void* cam, int hs, int hp, int hm,
     int hl, int ns, int np, int nt, int nm, int nl, int max_depth, int glass,
     float t_min, float bias, float bg_r, float bg_g, float bg_b, int width,
     int height, int row0, int rows, float eps, const void* plan,
-    const void* target, int g0, int gn, void* partial, void* loss_out,
-    void* grad_out, void* scratch, void* stream) {
-  if (rows <= 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const void* target, int g0, int gn, void* partial, void* scratch,
+    void* stream) {
+  if (rows <= 0 || width <= 0 ||
+      static_cast<long long>(rows) * width >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (max_depth < 0 || (glass && max_depth >= kGlassLevels) ||
       (rt_fused_train_deep_nodes(max_depth, glass) > 0 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -764,22 +835,25 @@ extern "C" int rt_fused_train(
     if (j <= go.lgt) return (j - go.mat) % 7 == 0;
     return (j - go.lgt) % 6 == 0;
   };
-  if (g0 < 0 || gn < 1 || gn > kGradWindow || g0 + gn > n_grads ||
-      !row_start(g0) || !row_start(g0 + gn))
+  if (g0 < 0 || gn < 1 || g0 + gn > n_grads || !row_start(g0) ||
+      !row_start(g0 + gn))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = scene_smem_bytes(ns, np, nt, nm, nl);
-  const size_t red = sizeof(float) * kTrainWarps * (kGradWindow + 1);
-  if (smem + red > kSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kTrainBlockX, kTrainBlockY);
-  const dim3 grid((width + kTrainBlockX - 1) / kTrainBlockX,
-                  (rows + kTrainBlockY - 1) / kTrainBlockY);
-  const int n_blocks = static_cast<int>(grid.x * grid.y);
-  auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem =
+      sizeof(float) * (acc_offset(ns, np, nt, nm, nl) +
+                       static_cast<size_t>(kTrainThreads) * (gn + 1 + kMaxRow));
+  if (smem > kTrainSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = rt_fused_train_blocks(width, rows);
   auto kern = glass ? fused_train_kernel<true, false>
                     : (rt_fused_train_deep_nodes(max_depth, glass) > 0
                            ? fused_train_kernel<false, true>
                            : fused_train_kernel<false, false>);
-  kern<<<grid, block, smem, st>>>(
+  if (smem > kSmemBytes) {  // past 48 KB a block must opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<n_blocks, kTrainThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(sph), static_cast<const float*>(pln),
       static_cast<const float*>(mat), static_cast<const float*>(lgt),
       static_cast<const float*>(stat), static_cast<const int*>(ids),
@@ -787,10 +861,20 @@ extern "C" int rt_fused_train(
       max_depth, t_min, bias, bg_r, bg_g, bg_b, width, height, row0, rows, eps,
       static_cast<const int*>(plan), static_cast<const float*>(target),
       static_cast<float*>(partial), static_cast<float*>(scratch));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<gn + 1, kReduceThreads, 0, st>>>(
-      static_cast<const float*>(partial), n_blocks, gn + 1,
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry for ctypes: Σ over the `n_blocks` rows of `partial` [n_blocks,
+// n_out] on `stream`; column 0 (the loss) to *loss_out unless that is null,
+// column j ≥ 1 to grad_out[j − 1]. Returns cudaGetLastError().
+extern "C" int rt_fused_train_reduce(const void* partial, int n_blocks,
+                                     int n_out, void* loss_out,
+                                     void* grad_out, void* stream) {
+  if (n_blocks < 1 || n_out < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  reduce_partials<<<(n_out + kReduceX - 1) / kReduceX, dim3(kReduceX, kReduceY),
+                    0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), n_blocks, n_out,
       static_cast<float*>(loss_out), static_cast<float*>(grad_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -110,8 +110,8 @@ def load_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rt_grid_walk.restype = i
         lib.rt_grid_walk.argtypes = (
-            [p] * 11                      # orig … soa
-            + [i] * 6                     # n, nx, ny, nz, cap, n_tris
+            [p] * 12                      # orig … cells, slots
+            + [i] * 4                     # n, nx, ny, nz
             + [ctypes.c_float, i, i]      # t_min, max_iters, occlusion
             + [p, p, p])                  # t_out, i_out, stream
         f = ctypes.c_float
@@ -137,8 +137,11 @@ def load_library() -> ctypes.CDLL:
             + [f] * 5                     # t_min, bias, bg rgb
             + [i] * 4                     # width, height, row0, rows
             + [f, p, p, i, i]             # eps, plan, target, g0, gn
-            + [p] * 5)                    # partial, loss_out, grad_out,
-                                          # scratch, stream
+            + [p] * 3)                    # partial, scratch, stream
+        lib.rt_fused_train_reduce.restype = i
+        lib.rt_fused_train_reduce.argtypes = (
+            [p, i, i] + [p] * 3)          # partial, n_blocks, n_out,
+                                          # loss_out, grad_out, stream
         lib.rt_tri_trace.restype = i
         lib.rt_tri_trace.argtypes = (
             [p] * 5                       # orig, dir, max_t, active, tris

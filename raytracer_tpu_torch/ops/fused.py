@@ -69,10 +69,15 @@ MAX_GLASS_DEPTH = 5
 MAX_PLAN_LIGHTS = 32
 # The kernel stages the packed scene in shared memory (static 48 KB window).
 KERNEL_SMEM_BYTES = 48 * 1024
-# The train kernel accumulates the gradients of at most this many table
-# floats, whole table rows, per launch (of G = 4·S + 9·P + 7·M + 6·L, padded
-# heights): one launch per window.
-TRAIN_GRAD_WINDOW = 256
+# The train kernel keeps a column of accumulators per thread in shared
+# memory: the loss, a window of table floats (whole table rows, of G = 4·S +
+# 9·P + 7·M + 6·L, padded heights) and a sink of the widest row.
+# TRAIN_THREADS columns beside the scene must fit TRAIN_SMEM_BYTES
+# (csrc/fused_train.cu: kTrainThreads, kTrainSmemBytes, kMaxRow): one launch
+# per window, one window whenever the table fits.
+TRAIN_THREADS = 128
+TRAIN_SMEM_BYTES = 232448
+_MAX_ROW = 9
 _MODES = {"image": 0, "live_plan": 1, "plan": 2}
 
 _DET_EPS = 1e-8
@@ -326,18 +331,26 @@ def _check_target(fw: FusedWhitted, rows: int, target) -> torch.Tensor:
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-def grad_windows(tables):
+def grad_windows(tables, window: int):
     """The train kernel's launches: windows (g0, gn) of whole table rows,
-    ≤TRAIN_GRAD_WINDOW floats each, covering the tables' floats in order."""
+    ≤`window` floats each, covering the tables' floats in order."""
     windows, g0, gn = [], 0, 0
     for t in tables:
         width = t.shape[1]
         for _ in range(t.shape[0]):
-            if gn + width > TRAIN_GRAD_WINDOW:
+            if gn + width > window:
                 windows.append((g0, gn))
                 g0, gn = g0 + gn, 0
             gn += width
     return windows + [(g0, gn)]
+
+
+def train_window(fw: "FusedWhitted") -> int:
+    """Table floats one train launch accumulates for this object's scene:
+    the widest window whose per-thread columns fit the block's shared memory
+    beside the staged scene."""
+    scene = -(-_smem_bytes(fw) // 16) * 16
+    return (TRAIN_SMEM_BYTES - scene) // (4 * TRAIN_THREADS) - 1 - _MAX_ROW
 
 
 def _smem_bytes(fw: FusedWhitted) -> int:
@@ -416,7 +429,8 @@ def fused_whitted_cuda(fw: FusedWhitted, row0: int, rows: int, eps=0.0,
 def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
                      eps=0.0):
     """Launch the train kernel (csrc/fused_train.cu) on the current stream,
-    once per window of table rows (`grad_windows`) → (loss_sum [] f32,
+    once per window of table rows (`grad_windows` of `train_window`: one
+    launch whenever the table fits) → (loss_sum [] f32,
     {"sph", "pln", "mat", "lgt"} gradients shaped like the tables).
     `plan`: the band's [2·n_nodes, rows, W] i32 plan as `fused_whitted_cuda`
     returns it in either plan mode (the win planes, then the occ planes; only
@@ -435,8 +449,7 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
     if nl > MAX_PLAN_LIGHTS:
         raise ValueError(f"the plan packs ≤{MAX_PLAN_LIGHTS} lights' shadow "
                          "bits")
-    # the scene, and the block's [4 warps, 1 + TRAIN_GRAD_WINDOW] sums
-    smem = _smem_bytes(fw) + 16 * (TRAIN_GRAD_WINDOW + 1)
+    smem = _smem_bytes(fw)
     if smem > KERNEL_SMEM_BYTES:
         raise ValueError(f"scene needs {smem} bytes of shared memory, the "
                          f"kernel has {KERNEL_SMEM_BYTES}")
@@ -466,7 +479,7 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
                          f"3] on {dev}")
     lib = load_library()
     n_blocks = lib.rt_fused_train_blocks(w, rows)
-    windows = grad_windows(tabs)
+    windows = grad_windows(tabs, train_window(fw))
     partial = torch.empty((n_blocks, 1 + max(gn for _, gn in windows)),
                           dtype=torch.float32, device=dev)
     out = torch.empty((n_grads + 1,), dtype=torch.float32, device=dev)
@@ -483,13 +496,18 @@ def fused_train_cuda(fw: FusedWhitted, row0: int, rows: int, plan, target,
             opts.max_depth, int(fw.has_glass), float(opts.t_min),
             float(opts.bias), *bg, w, opts.height, row0, rows, float(eps),
             plan.data_ptr(), target.data_ptr(), g0, gn, partial.data_ptr(),
-            out.data_ptr() if g0 == 0 else None,
-            out[1 + g0:].data_ptr(),
             None if scratch is None else scratch.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"fused train kernel launch failed: CUDA "
                                f"error {rc}")
         train_launches += 1
+        rc = lib.rt_fused_train_reduce(
+            partial.data_ptr(), n_blocks, gn + 1,
+            out.data_ptr() if g0 == 0 else None, out[1 + g0:].data_ptr(),
+            stream)
+        if rc != 0:
+            raise RuntimeError(f"fused train reduction launch failed: CUDA "
+                               f"error {rc}")
     grads, k = {}, 1
     for name, t in zip(("sph", "pln", "mat", "lgt"), tabs):
         grads[name] = out[k:k + t.numel()].view(t.shape)

@@ -12,6 +12,8 @@ kernel (or raises — there is no fallback), a CPU tensor runs
 noise (rtol 2e-6) and winner ids match except on knife edges.
 """
 
+import dataclasses
+
 import torch
 
 from raytracer_tpu_torch.accel import grid as grid_mod
@@ -27,16 +29,43 @@ launches = 0
 _REF_CHUNK = 1 << 16
 
 
-def pack_cell_table(grid: grid_mod.GridData) -> torch.Tensor:
-    """The walk's candidate table: `cell_soa [ncells, C, 10]` f32, contiguous
-    (v0|e1|e2|id per slot), on the grid's device."""
+@dataclasses.dataclass(frozen=True)
+class WalkTable:
+    """The walk's candidate tables, built once per grid
+    (`pack_cell_table`), on the grid's device:
+    - `soa`: `cell_soa [ncells, C, 10]` f32, v0|e1|e2|id per slot, the
+      sentinel-padded rows that the plain version gathers;
+    - `cells`: [ncells, 2] i32, each cell's offset into `slots` and its
+      count of listed triangles (the kernel's trip count);
+    - `slots`: [n_slots, 12] f32, every cell's listed triangles packed once,
+      in cell order and in `cell_soa`'s slot order: v0|e1|e2|id|0|0, rows of
+      48 bytes that the kernel reads as three 16-byte loads."""
+
+    soa: torch.Tensor
+    cells: torch.Tensor
+    slots: torch.Tensor
+
+
+def pack_cell_table(grid: grid_mod.GridData) -> WalkTable:
+    """The walk's tables from `grid.cell_soa`, whose cells fill front to
+    back (listed triangles, then sentinel slots with id = n_tris)."""
     soa = grid.cell_soa
     ncells = grid.res[0] * grid.res[1] * grid.res[2]
     if soa.dtype != torch.float32 or tuple(soa.shape) != (
             ncells, grid.capacity, 10):
         raise ValueError(f"cell_soa must be f32 [{ncells}, {grid.capacity}, "
                          f"10], got {soa.dtype} {tuple(soa.shape)}")
-    return soa.contiguous()
+    soa = soa.contiguous()
+    listed = soa[..., 9] != grid.n_tris
+    counts = listed.sum(dim=1)
+    slot = torch.arange(grid.capacity, device=soa.device)
+    if not torch.equal(listed, slot[None, :] < counts[:, None]):
+        raise ValueError("cell_soa: a sentinel slot precedes a listed one")
+    rows = soa[listed]  # row-major: cell by cell, slots in order
+    slots = torch.cat([rows, rows.new_zeros((rows.shape[0], 2))], dim=1)
+    cells = torch.stack([torch.cumsum(counts, 0) - counts, counts], dim=1)
+    return WalkTable(soa=soa, cells=cells.to(torch.int32).contiguous(),
+                     slots=slots.contiguous())
 
 
 def _max_iters(grid):
@@ -88,7 +117,8 @@ def grid_walk_cuda(grid, table, orig, direc, state, t_min,
             ("step", step, i32, (n, 3)), ("tdelta", tdelta, f32, (n, 3)),
             ("active", act, torch.bool, (n,)), ("best_t", best_t, f32, (n,)),
             ("best_i", best_i, i32, (n,)),
-            ("table", table, f32, (nx * ny * nz, grid.capacity, 10))):
+            ("table.cells", table.cells, i32, (nx * ny * nz, 2)),
+            ("table.slots", table.slots, f32, (table.slots.shape[0], 12))):
         check_arg(name, x, dt, shape, dev)
     occl = occlusion_max_t is not None
     if occl:
@@ -102,7 +132,7 @@ def grid_walk_cuda(grid, table, orig, direc, state, t_min,
         orig.data_ptr(), direc.data_ptr(), cell.data_ptr(), tmax.data_ptr(),
         step.data_ptr(), tdelta.data_ptr(), act.data_ptr(), best_t.data_ptr(),
         best_i.data_ptr(), occlusion_max_t.data_ptr() if occl else None,
-        table.data_ptr(), n, nx, ny, nz, grid.capacity, grid.n_tris,
+        table.cells.data_ptr(), table.slots.data_ptr(), n, nx, ny, nz,
         float(t_min), _max_iters(grid), int(occl), t_out.data_ptr(),
         i_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -125,12 +155,14 @@ def grid_walk_plain(grid: grid_mod.GridData, table, orig, direc, state,
                     t_min, occlusion_max_t=None, stats=None):
     """Plain torch walk from a `walk_init` state (the twin of
     `grid_walk_cuda`): the vectorised form of the reference's XLA walk at
-    fanout 1, skip 0. Each DDA iteration gathers the [lanes, C, 10] rows of
-    the still-walking lanes only, in chunks of `_REF_CHUNK` lanes.
+    fanout 1, skip 0. Each DDA iteration gathers the [lanes, C, 10]
+    `table.soa` rows of the still-walking lanes only, in chunks of
+    `_REF_CHUNK` lanes.
 
     With a `stats` dict, adds the work the kernel does on these rays:
-    "visits" (cell visits of walking lanes) and "candidates" (the non-
-    sentinel slots of the visited cells, which the kernel tests).
+    "visits" (cell visits of walking lanes), "candidates" (the listed
+    triangles of the visited cells, which the kernel tests) and
+    "lane_candidates" ([N] int64, the candidates of each lane).
     """
     best_t, best_i, cell, tmax, step, tdelta, act = state
     best_t, best_i = best_t.clone(), best_i.clone()
@@ -145,11 +177,14 @@ def grid_walk_plain(grid: grid_mod.GridData, table, orig, direc, state,
                 break
             c = cell[idx]
             cid = (c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]
-            rows = table[cid]                                  # [n, C, 10]
+            rows = table.soa[cid]                              # [n, C, 10]
             if stats is not None:
+                listed = (rows[..., 9] != grid.n_tris).sum(dim=1)
                 stats["visits"] = stats.get("visits", 0) + idx.shape[0]
-                stats["candidates"] = stats.get("candidates", 0) + (
-                    rows[..., 9] != grid.n_tris).sum()
+                stats["candidates"] = stats.get("candidates", 0) + listed.sum()
+                stats.setdefault("lane_candidates", torch.zeros(
+                    orig.shape[0], dtype=torch.int64,
+                    device=orig.device)).index_add_(0, idx, listed)
             o, d = orig[idx], direc[idx]
             ts, _, _ = geom.triangle_tuv(o[:, None, :], d[:, None, :],
                                          rows[..., 0:3], rows[..., 3:6],

@@ -110,6 +110,56 @@ def test_kernel_active_mask_matches_plain(cuda_case):
     assert bool((i1[off] == tracer._grid.n_tris).all())
 
 
+def _walk_rays(tracer, kind, orig, dirs, t_min):
+    """"sparse": the case's primaries with 40 scattered lanes active, 20 of
+    them rays that hit the mesh; "incoherent": 20,000 rays from random
+    points around the grid's box in random directions, all active."""
+    rng = np.random.default_rng(11)
+    if kind == "sparse":
+        hits = torch.isfinite(W.grid_walk_reference(
+            tracer._grid, tracer._table, orig, dirs, t_min)[0]).cpu().numpy()
+        act = np.zeros(orig.shape[0], bool)
+        for pool in (np.flatnonzero(hits), np.flatnonzero(~hits)):
+            act[rng.choice(pool, 20, replace=False)] = True
+        return orig, dirs, torch.from_numpy(act).to("cuda")
+    g = tracer._grid
+    lo = g.bmin.cpu().numpy()
+    ext = (g.cell_size * torch.tensor(g.res, dtype=torch.float32,
+                                      device=g.cell_size.device)).cpu().numpy()
+    o = lo + ext * rng.uniform(-0.25, 1.25, (20000, 3))
+    d = rng.normal(size=(20000, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cuda = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda")
+    return cuda(o), cuda(d), None
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("kind", ["sparse", "incoherent"])
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+def test_kernel_sparse_and_incoherent_rays_match_plain(cuda_case, kind, mode):
+    """Segments with few walking lanes, and rays whose warps scatter over
+    the grid, in both modes."""
+    tracer, orig, dirs, opts = cuda_case
+    o, d, act = _walk_rays(tracer, kind, orig, dirs, opts.t_min)
+    mx = None
+    if mode == "occlusion":
+        gen = torch.Generator().manual_seed(12)
+        mx = (0.5 + 8.0 * torch.rand(o.shape[0], generator=gen)).to("cuda")
+    (t0, i0), (t1, i1) = _kernel_and_plain(tracer, o, d, opts.t_min, mx, act)
+    if mode == "occlusion":
+        assert torch.equal(t0 < mx.cpu(), t1 < mx.cpu())
+        assert int((t0 < mx.cpu()).sum()) > 0
+    else:
+        assert_walks_agree(t0, i0, t1, i1)
+        assert int(torch.isfinite(t0).sum()) >= (20 if kind == "sparse"
+                                                 else 500)
+    if act is not None:
+        off = ~act.cpu()
+        assert bool(torch.isinf(t1[off]).all())
+        assert bool((i1[off] == tracer._grid.n_tris).all())
+
+
 @pytest.mark.cuda
 @NEEDS_GPU
 def test_kernel_wrapper_rejects_bad_inputs(cuda_case):
@@ -121,8 +171,11 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_case):
                          state, opts.t_min)
     with pytest.raises(ValueError, match="float32"):
         W.grid_walk_cuda(g, table, orig.double(), dirs, state, opts.t_min)
-    with pytest.raises(ValueError, match="shape"):
-        W.grid_walk_cuda(g, table[:-1], orig, dirs, state, opts.t_min)
+    for short in (dataclasses.replace(table, cells=table.cells[:-1]),
+                  dataclasses.replace(table,
+                                      slots=table.slots[:, :10].contiguous())):
+        with pytest.raises(ValueError, match="shape"):
+            W.grid_walk_cuda(g, short, orig, dirs, state, opts.t_min)
 
 
 # --- fused Whitted forward ----------------------------------------------------
@@ -304,6 +357,27 @@ def test_fused_train_kernel_is_deterministic():
         assert torch.equal(g0[k], g1[k]), k
 
 
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("row0,rows", [(0, None), (101, 333)])
+def test_fused_train_kernel_replays_several_pixels_per_thread(row0, rows):
+    """config2 600×500 d2: 300,000 pixels (199,800 in the band), more than
+    the launch's threads, and no multiple of the 128-thread block: each
+    thread replays several pixels and the last ones fewer. Held to the plain
+    version, and two runs bit-equal."""
+    fw, target = _train_case("config2", 600, 500, 2)
+    want, got = _train_kernel_and_plain(fw, target, row0, rows)
+    assert_train_agree(want, got)
+    rows = 500 - row0 if rows is None else rows
+    _, plan = F.fused_whitted_cuda(fw, row0, rows, mode="plan")
+    band = target[row0:row0 + rows].contiguous()
+    again = F.fused_train_cuda(fw, row0, rows, plan, band)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], got[0])
+    for k in got[1]:
+        assert torch.equal(again[1][k], got[1][k]), k
+
+
 # --- the forward's modes, the gradient windows, deep chains ------------------
 
 def _bound_config5(w, h):
@@ -361,36 +435,79 @@ def test_live_plan_step_equals_full_plan_step(name, w, h, depth):
 
 
 def test_grad_windows_hold_whole_rows():
-    """The train kernel's windows: whole table rows, ≤TRAIN_GRAD_WINDOW
-    floats each, covering every float once, in order."""
+    """The train kernel's windows: whole table rows, ≤ the window's floats
+    each, covering every float once, in order."""
     fw = F.FusedWhitted(*presets.many_spheres(width=8, height=8),
                         device="cpu")
     tables = (fw.sph, fw.pln, fw.mat, fw.lgt)
-    windows = F.grad_windows(tables)
+    windows = F.grad_windows(tables, 256)
     assert windows == [(0, 255), (255, 90)]  # 120 + 9 + 18·7 | 12·7 + 6
     starts = np.cumsum([0] + [t.shape[1] for t in tables
                               for _ in range(t.shape[0])])
     assert windows[0][0] == 0 and sum(gn for _, gn in windows) == 345
     for (g0, gn), (nxt, _) in zip(windows, windows[1:] + [(345, 0)]):
-        assert 0 < gn <= F.TRAIN_GRAD_WINDOW and g0 + gn == nxt
+        assert 0 < gn <= 256 and g0 + gn == nxt
         assert g0 in starts and g0 + gn in starts
     small = F.FusedWhitted(*_fused_case("config2", 8, 8), device="cpu")
-    assert F.grad_windows((small.sph, small.pln, small.mat, small.lgt)) == [
-        (0, 12 + 9 + 28 + 12)]
+    assert F.grad_windows((small.sph, small.pln, small.mat, small.lgt),
+                          256) == [(0, 12 + 9 + 28 + 12)]
+
+
+@pytest.mark.parametrize("case", ["config2", "config3", "spheres"])
+def test_train_launch_plan_is_one_window_when_table_fits(case):
+    """The train kernel's window fills the block's shared memory beside the
+    scene (a column of 1 + window + 9 floats per thread) and holds the whole
+    table of every preset and of the 345-float scene: one launch."""
+    scene, cam, opts = (presets.many_spheres(width=8, height=8)
+                        if case == "spheres" else _fused_case(case, 8, 8))
+    fw = F.FusedWhitted(scene, cam, opts, device="cpu")
+    tables = (fw.sph, fw.pln, fw.mat, fw.lgt)
+    n = sum(t.numel() for t in tables)
+    window = F.train_window(fw)
+    scene_bytes = -(-F._smem_bytes(fw) // 16) * 16
+    cols = lambda w: F.TRAIN_THREADS * 4 * (1 + w + 9)
+    assert scene_bytes + cols(window) <= F.TRAIN_SMEM_BYTES
+    assert scene_bytes + cols(window + 1) > F.TRAIN_SMEM_BYTES
+    assert window >= n
+    assert F.grad_windows(tables, window) == [(0, n)]
+
+
+@pytest.mark.parametrize("capacity", [128, 16])
+def test_walk_table_packs_cell_soa(capacity):
+    """The kernel's table lists each cell's triangles once, in cell_soa's
+    order, with the cell's offset and count; its rows are 12 floats (three
+    16-byte loads). Capacity 16 spills config4's blob into the overflow."""
+    scene, _, _ = presets.config4_mesh()
+    tracer = GridTracer.build(scene, "cpu", capacity=capacity)
+    g, table = tracer._grid, tracer._table
+    soa = g.cell_soa
+    assert table.soa is soa or torch.equal(table.soa, soa)
+    counts = (soa[..., 9] != g.n_tris).sum(dim=1)
+    offs, cnt = table.cells[:, 0].long(), table.cells[:, 1].long()
+    assert table.cells.dtype == torch.int32 and torch.equal(cnt, counts)
+    assert torch.equal(offs, torch.cumsum(counts, 0) - counts)
+    assert table.slots.shape == (int(counts.sum()), 12)
+    assert bool((table.slots[:, 10:] == 0).all())
+    for c in range(soa.shape[0]):
+        k = int(counts[c])
+        assert torch.equal(table.slots[offs[c]:offs[c] + k, :10], soa[c, :k])
+        assert bool((soa[c, k:, 9] == g.n_tris).all())
+    if capacity == 16:
+        assert g.overflow.shape[0] > 0 and int(counts.max()) == 16
 
 
 @pytest.mark.cuda
 @NEEDS_GPU
 def test_fused_train_kernel_without_table_cap():
-    """345 table floats, over the 256 of one gradient window: two launches,
+    """345 table floats, past a 256-float gradient window: one launch,
     held to the plain version."""
     fw = F.FusedWhitted(*presets.many_spheres(), device="cuda",
                         param_inputs=True)
     assert sum(t.numel() for t in (fw.sph, fw.pln, fw.mat, fw.lgt)) == 345
     target = (fw.render() * 0.9).contiguous()
     before = F.train_launches
-    want, got = _train_kernel_and_plain(fw, target, launches=2)
-    assert F.train_launches == before + 2
+    want, got = _train_kernel_and_plain(fw, target, launches=1)
+    assert F.train_launches == before + 1
     assert_train_agree(want, got)
     again = F.fused_train_cuda(fw, 0, fw.opts.height,
                                F.fused_whitted_cuda(fw, 0, fw.opts.height,
