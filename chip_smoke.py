@@ -44,10 +44,25 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   checking that all four kernels carried it and that each image matches the
   grid path's frame; kernel and plain times over one frame's launches.
 
+- wavefront training (the walk K5 and K1's full plan as planners): the
+  config4 1920×1080 d4 fwd+bwd step — `render(record_plan=True)` with the
+  grid walk, then `replay_band_vg` for the sphere centers and material
+  albedos against the grid frame × 0.9 — its time split into record and
+  replay value-and-grad (CUDA events), walk launches, traced rays and
+  fwd+bwd rays/s, peak memory, the plan's bytes, and the gather backward
+  timed as `pgather`'s one-hot reduce and as `table[idx]`'s `index_put_`;
+  the replay's image against the grid frame, the step against autograd
+  through the wavefront (remat off), and two runs; one step under
+  torch.profiler (top ops; in a process of its own); central differences
+  at config4 256×144 d4; K1's full plan replayed to K1's image (config2
+  1080p d2, config3 256² d4 glass); the main paths `cli optimize` without
+  a flag, `--plan` and `--preset mesh` (30 steps each).
+
 Before the kernels, raygen's pixel coordinates at 1920×1080 on the card are
 held to the CPU's bit for bit.
 
-A JSON line lists each kernel's launches on its main paths, error, times and
+A JSON line lists each kernel's launches on its main paths (per path under
+"main_paths" for K5 and K1), error, times and
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
 or bytes over 3.35 TB/s, whichever is larger, for the work of all the
 frames a kernel's times cover); K1 has one entry per mode. Any failure
@@ -1143,6 +1158,399 @@ def brute_times(kind, calls):
     return res
 
 
+# wavefront training (config4 fwd+bwd): the replay against the grid frame,
+# the replay step against autograd through the wavefront (remat off), and
+# two runs against each other (tests/test_replay.py's mesh standard)
+REPLAY_IMG_TOL = 2e-5
+VG_LOSS_RTOL, VG_GRAD_TOL = 1e-5, 2e-4  # loss; × each gradient's max
+RERUN_GRAD_TOL = 1e-6                   # × each gradient's max
+TRAIN_STEPS = 5                         # timed steps after a warm-up
+FRAMES = 5                              # timed config4 forward frames
+
+
+def with_params(scene, p):
+    """The config5 parameter classes (sphere centers, material albedos)
+    grafted into a scene: the reference bench's `_with_params`."""
+    import dataclasses
+
+    return scene.replace(
+        spheres=dataclasses.replace(scene.spheres, center=p["center"]),
+        materials=dataclasses.replace(scene.materials, albedo=p["albedo"]))
+
+
+def waveplan_record(dscene, cam, opts, tracer, device):
+    """The step's first part: the grid-walked render records the plan
+    under no_grad → (image, traced rays, (wins, occs))."""
+    import torch
+
+    from raytracer_tpu_torch.renderer import render
+
+    with torch.no_grad():
+        img, traced, wins, occs = render(dscene, cam, opts, device=device,
+                                         tracer=tracer, count_rays=True,
+                                         record_plan=True)
+    return img, traced, (wins, occs)
+
+
+def waveplan_vg(p0, dscene, cam, opts, target, plan, device):
+    """The step's second part: autograd over the shading replay."""
+    from raytracer_tpu_torch.ops.replay import replay_band_vg
+
+    return replay_band_vg(p0, dscene, cam, target, plan, 0,
+                          apply_params=with_params, opts=opts,
+                          rb=opts.height, device=device)
+
+
+def max_rel(a, b):
+    """max |a − b| over max |b|, per gradient table → the worst."""
+    return max(float((a[k] - b[k]).abs().max())
+               / max(float(b[k].abs().max()), 1e-30) for k in b)
+
+
+def step_times(dscene, cam, opts, tracer, target, p0, device):
+    """Mean device ms per step over TRAIN_STEPS steps (CUDA events), split
+    into the recording render and the replay value-and-grad → (record ms,
+    vg ms, traced rays per step)."""
+    import torch
+
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(TRAIN_STEPS)]
+    traced = None
+    for e in ev:
+        e[0].record()
+        _, traced, plan = waveplan_record(dscene, cam, opts, tracer, device)
+        e[1].record()
+        waveplan_vg(p0, dscene, cam, opts, target, plan, device)
+        e[2].record()
+    torch.cuda.synchronize()
+    rec = sum(e[0].elapsed_time(e[1]) for e in ev) / TRAIN_STEPS
+    vg = sum(e[1].elapsed_time(e[2]) for e in ev) / TRAIN_STEPS
+    return rec, vg, float(traced)
+
+
+def waveplan_phase(scene, cam, opts, tracer, frame, device):
+    """config4 1080p d4 fwd+bwd through the wavefront planner (the
+    reference bench's `_phase_bwd_waveplan`): the grid walk (K5) records the
+    plan under no_grad, autograd differentiates only the shading replay for
+    the sphere centers and material albedos, target = grid frame × 0.9.
+    → K5 launches per step."""
+    import torch
+
+    from raytracer_tpu_torch.ops import dgather as D
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.ops.replay import replay_render
+    from raytracer_tpu_torch.renderer import value_and_grad_banded
+
+    print(card_line(), flush=True)
+    dscene = scene.to(device)
+    target = frame * 0.9
+    p0 = {"center": dscene.spheres.center, "albedo": dscene.materials.albedo}
+    n3 = opts.width * opts.height * 3
+
+    # warm-up, then one step with the walk's launches counted
+    _, _, plan = waveplan_record(dscene, cam, opts, tracer, device)
+    waveplan_vg(p0, dscene, cam, opts, target, plan, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    W.launches = 0
+    t0 = time.perf_counter()
+    img, traced, plan = waveplan_record(dscene, cam, opts, tracer, device)
+    loss, grads = waveplan_vg(p0, dscene, cam, opts, target, plan, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = W.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    plan_bytes = sum(x.numel() * x.element_size() for planes in plan
+                     for x in planes)
+    assert k5 > 0, "the training step never launched the walk kernel"
+
+    # where the step's time goes, and the gather backward two ways, in
+    # turns: one-hot reduce (pgather), index_put_ (table[idx]), twice each
+    rec, vg, rays = step_times(dscene, cam, opts, tracer, target, p0, device)
+    # (one timed vg per turn after a warm-up: the index_put_ form takes
+    # seconds per step)
+    times = {"onehot": [], "index": []}
+    rows = D.SMALL_TABLE_ROWS
+    for mode in ("onehot", "index", "index", "onehot"):
+        D.SMALL_TABLE_ROWS = rows if mode == "onehot" else 0
+        times[mode].append(cuda_ms(lambda: waveplan_vg(
+            p0, dscene, cam, opts, target, plan, device), 1))
+    D.SMALL_TABLE_ROWS = rows
+    gather = {m: sum(v) / len(v) for m, v in times.items()}
+    step_ms = rec + vg
+    print(f"config4 {opts.width}x{opts.height} d{opts.max_depth} fwd+bwd "
+          f"(wavefront-planner replay; center {tuple(p0['center'].shape)}, "
+          f"albedo {tuple(p0['albedo'].shape)}): step {step_ms:.3f} ms = "
+          f"record {rec:.3f} + replay vg {vg:.3f} (CUDA events, mean of "
+          f"{TRAIN_STEPS} after a warm-up); one step {wall:.4f} s wall; "
+          f"{k5} walk launches per step; {rays:.6g} traced rays per step, "
+          f"{rays / (step_ms / 1e3):.6g} fwd+bwd rays/s; peak "
+          f"{peak:.1f} MiB; plan {plan_bytes} bytes ({len(plan[0])} "
+          f"bounces × 2 planes)", flush=True)
+    print(f"replay vg with the gather backward as a one-hot reduce "
+          f"(pgather) {gather['onehot']:.3f} ms, as table[idx]'s index_put_ "
+          f"{gather['index']:.3f} ms (means of runs {times})", flush=True)
+
+    # the replay's image is the grid frame's
+    with torch.no_grad():
+        rimg = replay_render(dscene, cam, opts, plan, device=device)[0]
+    d_img = float((rimg - frame).abs().max())
+    print(f"replay image vs the grid frame: max |d| {d_img:.3g} (limit "
+          f"{REPLAY_IMG_TOL})", flush=True)
+    assert d_img <= REPLAY_IMG_TOL, d_img
+
+    # against autograd through the wavefront with the walks in the graph's
+    # forward (remat off: the reference's plain jax.value_and_grad)
+    import dataclasses
+
+    plain = dataclasses.replace(opts, remat_tiles=False)
+    v_ref, g_ref = value_and_grad_banded(with_params, p0, dscene, cam, plain,
+                                         target, device=device, tracer=tracer)
+    d_loss = abs(float(loss) - float(v_ref)) / abs(float(v_ref))
+    d_grad = max_rel(grads, g_ref)
+    print(f"replay step vs value_and_grad_banded (remat off): loss "
+          f"{float(loss):.9g} vs {float(v_ref):.9g} (rel {d_loss:.3g}, limit "
+          f"{VG_LOSS_RTOL}), gradients within {d_grad:.3g} of each max "
+          f"(limit {VG_GRAD_TOL})", flush=True)
+    assert d_loss <= VG_LOSS_RTOL and d_grad <= VG_GRAD_TOL, (d_loss, d_grad)
+    del g_ref
+
+    # two runs
+    _, _, plan2 = waveplan_record(dscene, cam, opts, tracer, device)
+    loss2, grads2 = waveplan_vg(p0, dscene, cam, opts, target, plan2, device)
+    same_plan = all(torch.equal(a, b) for x, y in zip(plan, plan2)
+                    for a, b in zip(x, y))
+    d_rerun = max_rel(grads2, grads)
+    print(f"two runs: plans equal {same_plan}, losses {float(loss):.9g} and "
+          f"{float(loss2):.9g}, gradients within {d_rerun:.3g} of each max "
+          f"(limit {RERUN_GRAD_TOL})", flush=True)
+    assert float(loss2) == float(loss) and d_rerun <= RERUN_GRAD_TOL
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+    print(f"loss {float(loss):.6g} (= Σ/{n3}), |d center| max "
+          f"{float(grads['center'].abs().max()):.6g}, |d albedo| max "
+          f"{float(grads['albedo'].abs().max()):.6g}", flush=True)
+    return k5
+
+
+def profile_step():
+    """One config4 1080p d4 training step under torch.profiler, in a
+    process of its own (a second profiler session in one process read no
+    device time): prints the device busy time and the top ops by their own
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.renderer import render
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    device = torch.device("cuda", 0)
+    scene, cam, opts = load_scene_cli("config4")
+    tracer = build_tracer(scene, "auto", device)
+    dscene = scene.to(device)
+    with torch.no_grad():
+        target = render(dscene, cam, opts, device=device,
+                        tracer=tracer)[0] * 0.9
+    p0 = {"center": dscene.spheres.center, "albedo": dscene.materials.albedo}
+
+    def step():
+        _, _, plan = waveplan_record(dscene, cam, opts, tracer, device)
+        waveplan_vg(p0, dscene, cam, opts, target, plan, device)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    events = prof.key_averages()
+    ops = sorted((e for e in events if e.key.startswith("aten::")), key=dev,
+                 reverse=True)
+    # device busy: the kernels' own times (an op's device time is its
+    # kernels', so ops and kernels are not summed together)
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev(e) for e in kernels) / 1e3
+    print(f"profiled step: {wall:.1f} ms wall (profiler on), "
+          f"{sum(e.count for e in kernels)} kernels, device busy "
+          f"{busy:.1f} ms; top ops by own device time:")
+    for e in ops[:12]:
+        print(f"  {e.key}: {dev(e) / 1e3:.3f} ms in {e.count} calls")
+
+
+def profile_phase():
+    out = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.profile_step()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    print(out.stdout, end="", flush=True)
+    assert out.returncode == 0, out.stderr[-4000:]
+
+
+def edge_mask(*imgs, thresh=0.02):
+    """Pixels ≥2 px from any edge in all the images (tests/test_grads.py's
+    `_interior_mask`): central differences flip pixels at silhouettes and
+    shadow edges, where autograd's gradient is zero by design."""
+    import numpy as np
+
+    mask = np.ones(imgs[0].shape[:2], bool)
+    for img in imgs:
+        a = img.max(axis=-1)
+        edge = np.zeros_like(a, bool)
+        d = np.abs(np.diff(a, axis=0)) > thresh
+        edge[:-1] |= d
+        edge[1:] |= d
+        d = np.abs(np.diff(a, axis=1)) > thresh
+        edge[:, :-1] |= d
+        edge[:, 1:] |= d
+        for _ in range(2):  # dilate
+            e2 = edge.copy()
+            e2[:-1] |= edge[1:]
+            e2[1:] |= edge[:-1]
+            e2[:, :-1] |= edge[:, 1:]
+            e2[:, 1:] |= edge[:, :-1]
+            edge = e2
+        mask &= ~edge
+    assert mask.mean() > 0.3, "the edge mask ate the image"
+    return mask
+
+
+def waveplan_fd(device):
+    """Central differences of the masked pixel loss Σ mask·(img − target)²
+    (float64 on the host) against the replay's autograd gradient, at config4
+    256×144 d4 with the grid walk, for 2 sphere-center and 2 albedo
+    coordinates."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops.replay import replay_render
+    from raytracer_tpu_torch.renderer import as_leaf, render
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    scene, cam, opts = load_scene_cli("config4", width=256, height=144)
+    tracer = build_tracer(scene, "auto", device)
+    dscene = scene.to(device)
+    base = {"center": dscene.spheres.center.clone(),
+            "albedo": dscene.materials.albedo.clone()}
+    with torch.no_grad():
+        img0 = render(dscene, cam, opts, device=device, tracer=tracer)[0]
+        target = (img0 * 0.9).double()
+    mask = torch.from_numpy(edge_mask(img0.cpu().numpy(),
+                                      target.cpu().numpy())).to(device)
+
+    def loss64(params):
+        with torch.no_grad():
+            img = render(with_params(dscene, params), cam, opts,
+                         device=device, tracer=tracer)[0].double()
+        return float((((img - target) ** 2).sum(-1) * mask).sum())
+
+    _, _, plan = waveplan_record(dscene, cam, opts, tracer, device)
+    leaves = {k: as_leaf(v, device) for k, v in base.items()}
+    with torch.enable_grad():
+        img = replay_render(with_params(dscene, leaves), cam, opts, plan,
+                            device=device)[0]
+        loss = (((img - target.float()) ** 2).sum(-1) * mask).sum()
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+    for key, (i, k) in (("center", (0, 0)), ("center", (0, 1)),
+                        ("albedo", (0, 0)), ("albedo", (2, 1))):
+        hi = {a: v.clone() for a, v in base.items()}
+        lo = {a: v.clone() for a, v in base.items()}
+        hi[key][i, k] += FD_EPS
+        lo[key][i, k] -= FD_EPS
+        fd = (loss64(hi) - loss64(lo)) / (2 * FD_EPS)
+        got = float(grads[key][i, k])
+        msg = (f"config4 256x144 d4: d loss / d {key}[{i}, {k}]: replay "
+               f"autograd {got:.6g}, central difference {fd:.6g} "
+               f"({int((~mask).sum())} edge pixels masked)")
+        print(msg, flush=True)
+        assert np.isfinite(got) and abs(got - fd) <= 0.05 * abs(fd) + 2e-3, msg
+
+
+def fused_replay_phase(frame2, device):
+    """K1's full plan replays to K1's image: config2 1080p d2 (`frame2`, the
+    main path's (FusedWhitted, (scene, camera, opts))) and config3 256² d4
+    (glass: the node planes concatenated per bounce)."""
+    import torch
+
+    from raytracer_tpu_torch.ops.replay import replay_render
+
+    for name, (fw, (scene, cam, opts)) in (
+            ("config2", frame2),
+            ("config3", fused_case("config3", device, 256, 256, 4))):
+        tag = f"{name} {opts.width}x{opts.height} d{opts.max_depth}"
+        img, wins, occs = fw.render_plan()
+        with torch.no_grad():
+            rimg = replay_render(scene, cam, opts, (wins, occs),
+                                 device=device)[0]
+        diff = (rimg - img).abs().amax(dim=-1)
+        bad = float((diff > PX_TOL).float().mean())
+        msg = (f"{tag}: replay of K1's full plan ({len(wins)} node planes) "
+               f"vs K1's image: {bad:.5%} pixels off >1/255 (limit "
+               f"{PX_BAD:.1%}), max |d| {float(diff.max()):.3g}")
+        print(msg, flush=True)
+        assert bad <= PX_BAD, msg
+
+
+def cli_losses(argv):
+    """`cli.main(argv)` in-process → (losses, stdout, wall s)."""
+    import torch
+
+    from raytracer_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    text = buf.getvalue()
+    return ([json.loads(line)["loss"] for line in text.splitlines()
+             if line.startswith('{"step"')], text, dt)
+
+
+def trainers_main_path():
+    """`cli optimize` without a flag, `--plan` (config5 128²) and
+    `--preset mesh` (config6 96²), 30 steps each after a 2-step warm-up →
+    full-plan launches of `--plan`."""
+    import re
+
+    from raytracer_tpu_torch.ops import fused as F
+
+    os.makedirs(OUT, exist_ok=True)
+    runs = {}
+    for tag, flags in (("autograd", []), ("plan", ["--plan"]),
+                       ("mesh", ["--preset", "mesh"])):
+        argv = ["optimize", *flags, "--log-every", "1", "--out",
+                os.path.join(OUT, f"optimize_{tag}.ppm")]
+        cli_losses(argv + ["--steps", "2"])  # warm-up
+        F.launches = F.live_plan_launches = F.plan_launches = 0
+        losses, text, dt = cli_losses(argv + ["--steps", "30"])
+        runs[tag] = (losses, text, dt, F.plan_launches)
+        print(f"main path: cli optimize {' '.join(flags) or '(no flag)'} "
+              f"--steps 30: {dt:.4f} s wall; loss step 0 {losses[0]:.9g}, "
+              f"step 9 {losses[9]:.6g}, step 29 {losses[-1]:.6g}; "
+              f"{F.plan_launches} full-plan launches", flush=True)
+        assert len(losses) == 30, (tag, len(losses))
+    losses = runs["autograd"][0]
+    assert losses[9] <= 0.5 * losses[0], losses
+    plan_losses, _, _, plan_launches = runs["plan"]
+    d0 = abs(plan_losses[0] - losses[0]) / losses[0]
+    print(f"--plan step-0 loss vs the unflagged: rel {d0:.3g} (limit 1e-5)",
+          flush=True)
+    assert d0 <= 1e-5, d0
+    assert plan_launches > 0, "optimize --plan never launched K1's full plan"
+    mesh_losses, text, _, _ = runs["mesh"]
+    vis = [float(m) for m in re.findall(r"visible (\d+\.\d+)", text)]
+    print(f"--preset mesh: visible-vertex L1 {vis[0]} → {vis[1]}",
+          flush=True)
+    assert mesh_losses[-1] < mesh_losses[0], mesh_losses
+    assert len(vis) == 2 and vis[1] < vis[0], vis
+    return plan_launches
+
+
 def main() -> int:
     import torch
 
@@ -1197,16 +1605,21 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     W.launches = 0
-    t0 = time.perf_counter()
-    img, traced = render_banded(scene, cam, opts, device=device,
-                                tracer=tracer, count_rays=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = W.launches
+    frame_s = []
+    for _ in range(FRAMES):  # the host's share varies: report the median
+        t0 = time.perf_counter()
+        img, traced = render_banded(scene, cam, opts, device=device,
+                                    tracer=tracer, count_rays=True)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    assert W.launches % FRAMES == 0, W.launches
+    launches = W.launches // FRAMES
+    dt = sorted(frame_s)[FRAMES // 2]
     rays = float(traced)
     print(f"config4 {opts.width}x{opts.height} depth {opts.max_depth}: "
-          f"{dt:.4f} s, {rays:.6g} rays, {rays / dt:.6g} rays/s, "
-          f"{launches} walk launches, peak "
+          f"{dt:.4f} s (median of {FRAMES} frames; "
+          f"{', '.join(f'{t:.4f}' for t in frame_s)}), {rays:.6g} rays, "
+          f"{rays / dt:.6g} rays/s, {launches} walk launches per frame, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     assert launches > 0, "the main path never launched the walk kernel"
     walk_frame = profile_ms(lambda: render_banded(
@@ -1216,6 +1629,16 @@ def main() -> int:
     assert tuple(img.shape) == (opts.height, opts.width, 3), img.shape
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+
+    _phase("main path: config4 1920x1080 d4 fwd+bwd (wavefront-planner "
+           "replay)")
+    k5_step = waveplan_phase(scene, cam, opts, tracer, img, device)
+
+    _phase("one training step under torch.profiler (own process)")
+    profile_phase()
+
+    _phase("replay autograd against central differences, config4 256x144 d4")
+    waveplan_fd(device)
 
     _phase("brute-force kernels (K3, K4) vs plain versions, config4 rays at "
            "1920x1080")
@@ -1264,7 +1687,10 @@ def main() -> int:
     k1_launches = {"image": sum(fused_main_path(device).values())}
 
     _phase("main path: FusedWhitted.render_plan (full plan)")
-    k1_launches["plan"] = plan_main_path(frames)
+    k1_plan_paths = {"FusedWhitted.render_plan": plan_main_path(frames)}
+
+    _phase("K1's full plan replays to K1's image")
+    fused_replay_phase(frames["config2 1920x1080 d2"], device)
 
     _phase("fused train kernel vs plain version on the card")
     train_err = 0.0
@@ -1295,6 +1721,14 @@ def main() -> int:
 
     _phase("main path: cli optimize --kernel")
     k1_launches["live_plan"], train_launches = optimize_main_path()
+
+    _phase("main path: cli optimize (autograd), --plan, --preset mesh")
+    k1_plan_paths["cli optimize --plan --steps 30"] = trainers_main_path()
+    k1_launches["plan"] = sum(k1_plan_paths.values())
+    k1_paths = {"image": {"cli render --tracer fused": k1_launches["image"]},
+                "live_plan": {"cli optimize --kernel --steps 30":
+                              k1_launches["live_plan"]},
+                "plan": k1_plan_paths}
 
     _phase("fused kernel times")
     k1 = {m: {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0}
@@ -1332,9 +1766,11 @@ def main() -> int:
         "name": "grid_walk", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/grid_walk.cu",
         "replaces": "raytracer_tpu/ops/pallas_walk.py:111",
-        "launches": launches, "max_abs_err": err, "ms": ms,
+        "launches": launches + k5_step, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": walk_bound, "bound_by": walk_by,
-        "library_ms": None}] + [{
+        "library_ms": None, "main_paths": {
+            "cli render --config config4 (1080p d4 frame)": launches,
+            "config4 1080p d4 fwd+bwd step (record_plan)": k5_step}}] + [{
         "name": "fused_whitted" + ("" if m == "image" else "_" + m),
         "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_whitted.cu",
@@ -1342,7 +1778,8 @@ def main() -> int:
         "launches": k1_launches[m], "max_abs_err": fused_err[m],
         "ms": k1[m]["ms"], "plain_ms": k1[m]["plain_ms"],
         "bound_ms": k1[m]["bound_ms"], "bound_by": k1[m]["bound_by"],
-        "library_ms": None} for m in K1_MODES] + [{
+        "library_ms": None, "main_paths": k1_paths[m]}
+        for m in K1_MODES] + [{
         "name": "fused_train", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_train.cu",
         "replaces": "raytracer_tpu/ops/fused.py:326 (train)",

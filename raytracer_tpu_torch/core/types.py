@@ -263,9 +263,11 @@ class Camera(_Table):
 class RenderOptions:
     """Static render options; the same fields and defaults as the reference.
 
-    `remat_tiles`, `remat_policy` and `compact_cap` belong to the training
-    and glass-compaction paths, which this package does not have yet: the
-    renderer refuses a set `compact_cap` rather than ignoring it.
+    `remat_tiles` and `remat_policy` ("plan" or "full") set how a
+    differentiable render recomputes its tiles in the backward (renderer.py).
+    `compact_cap` belongs to glass compaction, which this package does not
+    have yet: the renderer refuses a set `compact_cap` rather than ignoring
+    it.
     """
 
     width: int = 256

@@ -1,5 +1,6 @@
-"""Procedural mesh generation (NumPy, host-side cold path); the numpy
-functions of `raytracer_tpu/io/meshgen.py`.
+"""Procedural mesh generation (NumPy, host-side cold path) and smooth
+vertex normals; counterpart of `raytracer_tpu/io/meshgen.py`
+(`vertex_normals_torch` is the twin of its `vertex_normals_jnp`).
 
 The reference's benchmark mesh is a ~10k-triangle bunny OBJ (BASELINE config 4).
 This box has zero network egress and the reference mount is empty, so the
@@ -10,6 +11,7 @@ Both exceed/meet the 10k-triangle bar and exercise exactly the same device paths
 """
 
 import numpy as np
+import torch
 
 
 def icosphere(subdiv: int = 5, radius: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
@@ -72,6 +74,23 @@ def vertex_normals(verts: np.ndarray, tris: np.ndarray) -> np.ndarray:
     norm = np.linalg.norm(n, axis=1, keepdims=True)
     norm[norm == 0] = 1.0
     return (n / norm).astype(np.float32)
+
+
+def vertex_normals_torch(verts, tris):
+    """Differentiable twin of `vertex_normals` (torch tensors): inverse
+    rendering over mesh geometry re-derives the smooth normals from the
+    moving vertices inside the loss, so shading gradients reach `verts`
+    through the normals too. Face normals (area-weighted) are summed per
+    vertex with `index_add_`; a vertex whose sum is zero keeps it (divided
+    by 1), as the reference's rule has it."""
+    tris = tris.long()
+    v0, v1, v2 = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    fn = torch.linalg.cross(v1 - v0, v2 - v0)  # area-weighted
+    n = torch.zeros_like(verts)
+    for k in range(3):
+        n.index_add_(0, tris[:, k], fn)
+    norm = torch.linalg.vector_norm(n, dim=1, keepdim=True)
+    return n / torch.where(norm == 0, 1.0, norm)
 
 
 def quad(p00, p10, p11, p01) -> tuple[np.ndarray, np.ndarray]:

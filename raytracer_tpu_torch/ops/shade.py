@@ -12,17 +12,32 @@ from raytracer_tpu_torch.ops import trace as trace_ops
 from raytracer_tpu_torch.ops.geometry import reflect
 from raytracer_tpu_torch.ops.safemath import dot, maximum, safe_pow, safe_sqrt
 
+# The occlusion bitmask packs one bit per light into an int32.
+MAX_PLAN_LIGHTS = 32
+
 
 def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
-                  tri_chunk: int, tracer=None, active=None):
+                  tri_chunk: int, tracer=None, active=None,
+                  occ_out: list | None = None):
     """Phong local radiance [N,3] for rays hitting diffuse/glossy surfaces.
 
     Computed for *all* rays (branchless); the caller masks by material type.
     `tracer` overrides the occlusion backend. `active` [N] bool marks the
     lanes whose result the caller keeps; walk-based backends park the others.
+    `occ_out` (a list) receives this bounce's per-light occlusion bitmask
+    [N] i32 (bit l set = light l occluded; ≤32 lights): the plan encoding
+    that ops/replay.PlanTracer reads back. The shadow searches run under
+    `torch.no_grad()` on detached rays.
     Returns rgb [N,3]. (The reference also returns a shadow-ray count that
     its renderer discards; the renderer counts shadow rays itself.)
     """
+    if occ_out is not None:
+        if scene.lights.count > MAX_PLAN_LIGHTS:
+            raise ValueError("the occlusion bitmask packs into int32: at most "
+                             f"{MAX_PLAN_LIGHTS} lights, got "
+                             f"{scene.lights.count}")
+        occ_acc = torch.zeros(surf.p.shape[:1], dtype=torch.int32,
+                              device=surf.p.device)
     p, n = surf.p, surf.n
     # shadow origin: + bias·N when the viewing ray hits the front face (SPEC)
     front = (dot(in_dir, n) < 0).to(torch.float32)
@@ -43,15 +58,21 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
         # exact and roughly halves the walk's live set on curved geometry
         lit = (ldn > 0).detach()
         oactive = lit if active is None else (active & lit)
-        if tracer is None:
-            shadowed = trace_ops.occluded(scene, sorig, ldir, dist, t_min,
-                                          tri_chunk, active=oactive)
-        else:
-            shadowed = tracer.occluded(sorig, ldir, dist, t_min, tri_chunk,
-                                       active=oactive)
+        with torch.no_grad():
+            so, sd, sm = sorig.detach(), ldir.detach(), dist.detach()
+            if tracer is None:
+                shadowed = trace_ops.occluded(scene, so, sd, sm, t_min,
+                                              tri_chunk, active=oactive)
+            else:
+                shadowed = tracer.occluded(so, sd, sm, t_min, tri_chunk,
+                                           active=oactive)
+        if occ_out is not None:
+            occ_acc = occ_acc | (shadowed.to(torch.int32) << li)
         vis = (~shadowed).to(torch.float32)
         light_amt = light_amt + (vis * ldn)[:, None] * lint[None, :]
         r = reflect(-ldir, n)
         spec = spec + safe_pow(-dot(r, in_dir), surf.spec_n)[:, None] * lint[None, :]
     rgb = light_amt * surf.albedo * surf.kd[:, None] + spec * surf.ks[:, None]
+    if occ_out is not None:
+        occ_out.append(occ_acc)
     return rgb

@@ -16,6 +16,7 @@ import torch
 from raytracer_tpu_torch.core.types import (KIND_NONE, KIND_PLANE,
                                             KIND_SPHERE, KIND_TRIANGLE, Scene)
 from raytracer_tpu_torch.ops import geometry as geom
+from raytracer_tpu_torch.ops.dgather import pgather, tselect
 from raytracer_tpu_torch.ops.safemath import cross, dot, normalize, safe_div
 
 INF = geom.INF
@@ -137,7 +138,9 @@ def _checker(u, v, scale):
 
 def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
     """Recompute t/normal/uv/material of the winner from the gathered
-    primitive parameters (kind/idx are fixed integer inputs)."""
+    primitive parameters (kind/idx are fixed integer inputs). The small
+    sphere, plane and material tables are read through `pgather`/`tselect`;
+    the mesh tables keep the native gather (their rows are many)."""
     n_rays = orig.shape[0]
     dev = orig.device
     t = torch.zeros((n_rays,), dtype=torch.float32, device=dev)
@@ -150,37 +153,40 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
         sp = scene.spheres
         m = hit.kind == KIND_SPHERE
         i = torch.where(m, hit.idx, 0)
-        c = sp.center[i]
-        r = sp.radius[i]
+        # pgather = table[i] with a sort-free backward: these per-lane
+        # gathers from few-row tables otherwise backward as an
+        # index_put_ of every lane's cotangent (ops/dgather.py)
+        c = pgather(sp.center, i)
+        r = pgather(sp.radius, i)
         ts = geom.sphere_t(orig, direc, c, r, t_min)
         ts = torch.where(m, ts, 0.0)
         p = orig + ts[:, None] * direc
         ns = safe_div(p - c, r[:, None], valid=torch.abs(r[:, None]) > 1e-12)
         t = torch.where(m, ts, t)
         nrm = torch.where(m[:, None], ns, nrm)
-        mat_id = torch.where(m, sp.mat_id[i], mat_id)
+        mat_id = torch.where(m, tselect(sp.mat_id, i), mat_id)
 
     if scene.planes.count:
         pl = scene.planes
         m = hit.kind == KIND_PLANE
         i = torch.where(m, hit.idx, 0)
-        p0 = pl.point[i]
-        pn = pl.normal[i]
+        p0 = pgather(pl.point, i)
+        pn = pgather(pl.normal, i)
         tp = geom.plane_t(orig, direc, p0, pn, t_min)
         tp = torch.where(m, tp, 0.0)
         p = orig + tp[:, None] * direc
-        u = dot(p - p0, pl.tangent[i])
-        v = dot(p - p0, pl.bitangent[i])
-        pattern = _checker(u, v, pl.checker_scale[i])
+        u = dot(p - p0, pgather(pl.tangent, i))
+        v = dot(p - p0, pgather(pl.bitangent, i))
+        pattern = _checker(u, v, pgather(pl.checker_scale, i))
         # SPEC: albedo_eff = c1 if pattern==0 else c2 — per-plane color pair
         # (material albedo, albedo2)
-        pmat = pl.mat_id[i]
-        calb = torch.where(pattern[:, None], pl.albedo2[i],
-                           scene.materials.albedo[pmat])
+        pmat = tselect(pl.mat_id, i)
+        calb = torch.where(pattern[:, None], pgather(pl.albedo2, i),
+                           pgather(scene.materials.albedo, pmat))
         t = torch.where(m, tp, t)
         nrm = torch.where(m[:, None], pn, nrm)
         mat_id = torch.where(m, pmat, mat_id)
-        is_checker = m & (pl.checker[i] > 0)
+        is_checker = m & (tselect(pl.checker, i) > 0)
         checker_mask = checker_mask | is_checker
         checker_albedo = torch.where(is_checker[:, None], calb, checker_albedo)
 
@@ -212,7 +218,7 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
             pattern = _checker(st[:, 0], st[:, 1], me.checker_scale[i])
             is_chk = m & (me.checker[i] > 0)
             calb = torch.where(pattern[:, None], me.albedo2[i],
-                               scene.materials.albedo[me.mat_id[i]])
+                               pgather(scene.materials.albedo, me.mat_id[i]))
             checker_mask = checker_mask | is_chk
             checker_albedo = torch.where(is_chk[:, None], calb, checker_albedo)
 
@@ -225,8 +231,9 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
     p = orig + t[:, None] * direc
     mats = scene.materials
     albedo = torch.where(checker_mask[:, None], checker_albedo,
-                         mats.albedo[mat_id])
+                         pgather(mats.albedo, mat_id))
     return Surface(valid=valid, t=t, p=p, n=nrm, albedo=albedo,
-                   mtype=mats.mtype[mat_id], kd=mats.kd[mat_id],
-                   ks=mats.ks[mat_id], spec_n=mats.spec_n[mat_id],
-                   ior=mats.ior[mat_id])
+                   mtype=tselect(mats.mtype, mat_id),
+                   kd=pgather(mats.kd, mat_id), ks=pgather(mats.ks, mat_id),
+                   spec_n=pgather(mats.spec_n, mat_id),
+                   ior=pgather(mats.ior, mat_id))

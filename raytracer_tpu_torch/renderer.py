@@ -12,6 +12,16 @@ The image is processed in tiles of `opts.tile_rays` primary rays, one after
 another, which bounds device memory at any resolution. With
 `opts.tile_block` the tiles are screen blocks instead of row-major runs, so
 neighbouring lanes of a walk are neighbouring pixels.
+
+Gradients: the winner searches run under `torch.no_grad()` on detached
+rays and return integers; everything else is ordinary torch, so autograd
+differentiates the surface recompute and the shading. A render whose scene
+and camera hold no tensor that requires grad builds no graph. When one does,
+`opts.remat_tiles` recomputes each tile in the backward instead of keeping
+its activations: `remat_policy="plan"` records the tile's plan (the winner
+ids and shadow bits) once under `no_grad` and checkpoints only the shading
+replay of that plan, so the backward never re-runs a search; `"full"`
+checkpoints the whole tile, searches included.
 """
 
 from __future__ import annotations
@@ -20,8 +30,11 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from raytracer_tpu_torch.core.types import (DIFFUSE_AND_GLOSSY, REFLECTION,
+from raytracer_tpu_torch.core.types import (DIFFUSE_AND_GLOSSY, KIND_PLANE,
+                                            KIND_SPHERE, KIND_TRIANGLE,
+                                            REFLECTION,
                                             REFLECTION_AND_REFRACTION, Camera,
                                             RenderOptions, Scene)
 from raytracer_tpu_torch.ops import geometry as geom
@@ -29,30 +42,55 @@ from raytracer_tpu_torch.ops.safemath import clamp01, normalize
 from raytracer_tpu_torch.ops.shade import shade_diffuse
 from raytracer_tpu_torch.ops.trace import nearest_hit, surface_at
 
+_REMAT_POLICIES = ("plan", "full")
+
 
 def _fold(x, n0):
     """[k·n0, C] buffer → per-pixel [n0, C] by summing the k child slots."""
     return x.reshape(-1, n0, x.shape[-1]).sum(dim=0)
 
 
+def _plan_win(scene: Scene, hit, alive):
+    """A bounce's plan plane: the fused-prim winner index [N] i32 (spheres,
+    then planes, then triangles; −1 = miss or dead lane), the encoding that
+    ops/replay.PlanTracer decodes."""
+    ns, npl = scene.spheres.count, scene.planes.count
+    win = torch.where(
+        hit.kind == KIND_SPHERE, hit.idx,
+        torch.where(hit.kind == KIND_PLANE, hit.idx + ns,
+                    torch.where(hit.kind == KIND_TRIANGLE,
+                                hit.idx + ns + npl, -1)))
+    return torch.where(alive, win, -1).to(torch.int32)
+
+
 def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
-                is_last: bool, count_rays: bool = False, tracer=None):
+                is_last: bool, count_rays: bool = False, tracer=None,
+                plan_out: list | None = None):
     """One wavefront bounce: trace + shade + spawn children.
 
     `state` = (o, d, thr, alive) ray buffers on one device. Returns (terms,
     new_state, traced_inc): `terms` are the per-pixel [n0,3] radiance
     contributions of this bounce in accumulation order; `new_state` is the
     child wavefront (None when `is_last`); `traced_inc` counts live trace
-    lanes (a 0-dim f32 tensor).
+    lanes (a 0-dim f32 tensor). `plan_out` (a list) receives this bounce's
+    plan node: (winner plane, occlusion bitmask plane), each [len(o)] i32.
     """
     o, d, thr, alive = state
     bg = torch.tensor(opts.background, dtype=torch.float32, device=o.device)
     # `active=alive` lets walk-based tracers park dead lanes before step 0
     # instead of walking their zero-normal "reflections"
-    if tracer is None:
-        hit = nearest_hit(scene, o, d, opts.t_min, opts.tri_chunk, active=alive)
-    else:
-        hit = tracer.nearest(o, d, opts.t_min, opts.tri_chunk, active=alive)
+    with torch.no_grad():
+        od, dd = o.detach(), d.detach()
+        if tracer is None:
+            hit = nearest_hit(scene, od, dd, opts.t_min, opts.tri_chunk,
+                              active=alive)
+        else:
+            hit = tracer.nearest(od, dd, opts.t_min, opts.tri_chunk,
+                                 active=alive)
+    occ_out = None
+    if plan_out is not None:
+        win = _plan_win(scene, hit, alive)
+        occ_out = []
     surf = surface_at(scene, o, d, hit, opts.t_min)
     valid = surf.valid & alive
     traced_inc = torch.zeros((), dtype=torch.float32, device=o.device)
@@ -66,7 +104,10 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     # leaves: diffuse hit → local Phong (branchless; masked after)
     is_diff = valid & (surf.mtype == DIFFUSE_AND_GLOSSY)
     local = shade_diffuse(scene, surf, d, opts.bias, opts.t_min,
-                          opts.tri_chunk, tracer=tracer, active=is_diff)
+                          opts.tri_chunk, tracer=tracer, active=is_diff,
+                          occ_out=occ_out)
+    if plan_out is not None:
+        plan_out.append((win, occ_out[0]))
     terms.append(_fold(torch.where(is_diff[:, None], thr * local, 0.0), n0))
     if count_rays:
         traced_inc = traced_inc + is_diff.to(torch.float32).sum() \
@@ -110,13 +151,17 @@ def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts):
 
 
 def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
-                count_rays: bool = False, tracer=None):
+                count_rays: bool = False, tracer=None,
+                record_plan: bool = False):
     """Trace a wavefront of primary rays to radiance [N,3] (unclamped).
 
     `scene` is a device scene (`Scene.to`) on the rays' device; `tracer`
-    overrides the winner-search backend (accel.grid.GridTracer). Returns
-    (radiance, rays_traced) where rays_traced counts every live trace lane
-    (primary + secondary + shadow) — the rays/s numerator.
+    overrides the winner-search backend (accel.grid.GridTracer, or a
+    replayed plan: ops/replay.PlanTracer). Returns (radiance, rays_traced)
+    where rays_traced counts every live trace lane (primary + secondary +
+    shadow) — the rays/s numerator. `record_plan=True` appends the plan,
+    one plane per bounce in lane order: (radiance, traced, wins, occs). On a
+    glass scene bounce b's planes are 2^b·N wide (the doubled buffer).
     """
     n0 = orig.shape[0]
     dev = orig.device
@@ -124,14 +169,65 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
     state = (orig, direc, torch.ones((n0, 3), dtype=torch.float32, device=dev),
              torch.ones((n0,), dtype=torch.bool, device=dev))
     traced = torch.zeros((), dtype=torch.float32, device=dev)
+    plan = [] if record_plan else None
     for depth in range(opts.max_depth + 1):
         terms, state, inc = bounce_step(
             scene, state, opts, n0, is_last=depth == opts.max_depth,
-            count_rays=count_rays, tracer=tracer)
+            count_rays=count_rays, tracer=tracer, plan_out=plan)
         for t in terms:
             radiance = radiance + t
         traced = traced + inc
+    if record_plan:
+        return (radiance, traced, tuple(w for w, _ in plan),
+                tuple(o for _, o in plan))
     return radiance, traced
+
+
+def needs_grad(*objs) -> bool:
+    """Is autograd on, and does any tensor leaf of these scenes/cameras
+    require grad?"""
+    if not torch.is_grad_enabled():
+        return False
+    for obj in objs:
+        for f in dataclasses.fields(obj):
+            x = getattr(obj, f.name)
+            if dataclasses.is_dataclass(x):
+                if needs_grad(x):
+                    return True
+            elif isinstance(x, torch.Tensor) and x.requires_grad:
+                return True
+    return False
+
+
+def _plan_remat_tile(scene, orig, direc, opts, count_rays, tracer):
+    """One tile under the "plan" policy → (radiance, traced): the searches
+    run once, under no_grad, recording the tile's plan; autograd sees only
+    the checkpointed shading replay of that plan. The replay's PlanTracer
+    is built inside the checkpointed function, so the backward's recompute
+    gets fresh cursors."""
+    from raytracer_tpu_torch.ops.replay import PlanTracer
+
+    with torch.no_grad():
+        _, traced, wins, occs = render_rays(scene, orig, direc, opts,
+                                            count_rays, tracer=tracer,
+                                            record_plan=True)
+    ns, npl = scene.spheres.count, scene.planes.count
+
+    def replay(o, d):
+        return render_rays(scene, o, d, opts,
+                           tracer=PlanTracer(wins, occs, ns, npl))[0]
+
+    return checkpoint(replay, orig, direc, use_reentrant=False), traced
+
+
+def _render_tile(scene, orig, direc, opts, count_rays, tracer, remat):
+    if not remat:
+        return render_rays(scene, orig, direc, opts, count_rays,
+                           tracer=tracer)
+    if opts.remat_policy == "plan":
+        return _plan_remat_tile(scene, orig, direc, opts, count_rays, tracer)
+    return checkpoint(render_rays, scene, orig, direc, opts, count_rays,
+                      tracer, use_reentrant=False)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -165,19 +261,32 @@ def _same_device(a, b) -> bool:
     return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
-@torch.no_grad()
 def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
            count_rays: bool = False, tracer=None, row0: int = 0,
-           rows: int | None = None):
+           rows: int | None = None, record_plan: bool = False):
     """Render → (image [rows,W,3] f32 in [0,1] on `device`, rays_traced).
 
     `scene` and `camera` may be host (numpy) or already on `device`; the
     tracer (if any) must have been built for `device`. `row0`/`rows` render
     a horizontal band of the full-image projection (defaults: whole image).
+    Differentiable in the scene's and camera's tensors that require grad
+    (see the module docstring for `opts.remat_tiles`/`remat_policy`).
+
+    `record_plan=True` appends the band's plan: per bounce, the winner
+    plane and the occlusion bitmask plane, each [rows·W] i32 in pixel order
+    → (img, traced, wins, occs). Glass scenes need compaction for that
+    (the buffer doubles per bounce), which is not ported: they raise.
     """
     if opts.compact_cap is not None:
         raise NotImplementedError("wavefront compaction (compact_cap) is not "
-                                  "ported yet (ROADMAP queue 1, item 12)")
+                                  "ported yet (ROADMAP queue 1, item 5)")
+    if record_plan and scene.has_glass:
+        raise ValueError("record_plan on a glass scene needs a compacted "
+                         "wavefront (compact_cap), which is not ported yet; "
+                         "uncompacted glass planes would not be per-pixel")
+    if opts.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {_REMAT_POLICIES}, "
+                         f"got {opts.remat_policy!r}")
     device = torch.device(device)
     if tracer is not None and not _same_device(tracer.device, device):
         raise ValueError(f"tracer lives on {tracer.device}, render asked for "
@@ -206,19 +315,42 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
         if n_pad != n_pix:
             dirs = torch.cat([dirs, dummy.expand(n_pad - n_pix, 3)])
     orig = camera.pos[None, :].expand(tile, 3)
+    grad = needs_grad(scene, camera)
+    remat = opts.remat_tiles and not record_plan and grad
 
-    rads = []
+    rads, wins, occs = [], [], []
     traced = torch.zeros((), dtype=torch.float32, device=device)
-    for s in range(0, dirs.shape[0], tile):
-        rad, inc = render_rays(scene, orig, dirs[s:s + tile], opts,
-                               count_rays, tracer=tracer)
-        rads.append(rad)
-        traced = traced + inc
+    # with nothing to differentiate, autograd's per-op bookkeeping is off
+    with torch.set_grad_enabled(grad):
+        for s in range(0, dirs.shape[0], tile):
+            if record_plan:
+                rad, inc, w_t, o_t = render_rays(
+                    scene, orig, dirs[s:s + tile], opts, count_rays,
+                    tracer=tracer, record_plan=True)
+                wins.append(w_t)
+                occs.append(o_t)
+            else:
+                rad, inc = _render_tile(scene, orig, dirs[s:s + tile], opts,
+                                        count_rays, tracer, remat)
+            rads.append(rad)
+            traced = traced + inc
     rad = torch.cat(rads)
     if inv_order is not None:
         rad = rad[inv_order]  # block order → pixel order
     img = clamp01(rad[:n_pix]).reshape(rows, w, 3)
-    return img, traced
+    if not record_plan:
+        return img, traced
+
+    def pixel_order(planes):  # per tile → [n_pix] in pixel order
+        x = torch.cat(planes)
+        if inv_order is not None:
+            x = x[inv_order]
+        return x[:n_pix]
+
+    n_bounces = opts.max_depth + 1
+    return (img, traced,
+            tuple(pixel_order([t[b] for t in wins]) for b in range(n_bounces)),
+            tuple(pixel_order([t[b] for t in occs]) for b in range(n_bounces)))
 
 
 def render_banded(scene: Scene, camera: Camera, opts: RenderOptions, *,
@@ -284,3 +416,71 @@ def render_image(scene: Scene, camera: Camera, opts: RenderOptions, *,
                  device, tracer=None):
     """Convenience: the image alone ([H,W,3] f32 in [0,1] on `device`)."""
     return render_banded(scene, camera, opts, device=device, tracer=tracer)[0]
+
+
+def as_leaf(x, device) -> torch.Tensor:
+    """A fresh f32 leaf on `device` that requires grad, holding x's values
+    (an array-like or a tensor, which is detached first)."""
+    t = x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.array(x, np.float32))
+    return t.to(device=device, dtype=torch.float32).clone().requires_grad_(
+        True)
+
+
+def value_and_grad_bands(band_fn, params, opts, target, bands, *, device):
+    """Σ over `bands` [(row0, rows), ...] of Σ (band_fn(leaves, row0, rows)
+    − target[row0:row0+rows])² / (H·W·3) → (loss [] f32, {name:
+    gradient}): `band_fn` renders an image band, `target` is the full
+    [H, W, 3] frame, each band's gradients are taken on their own and
+    summed. `params` {name: array-like} becomes fresh leaves on
+    `device`."""
+    device = torch.device(device)
+    leaves = {k: as_leaf(v, device) for k, v in params.items()}
+    target = (target if isinstance(target, torch.Tensor)
+              else torch.from_numpy(np.array(target, np.float32)))
+    target = target.detach().to(device=device, dtype=torch.float32)
+    # a device tensor: torch on CUDA divides by a Python number as a
+    # product with its rounded reciprocal
+    denom = torch.tensor(float(opts.width * opts.height * 3),
+                         dtype=torch.float32, device=device)
+    val = torch.zeros((), dtype=torch.float32, device=device)
+    grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
+    for r0, rb in bands:
+        with torch.enable_grad():
+            img = band_fn(leaves, r0, rb)
+            loss = ((img - target[r0:r0 + rb]) ** 2).sum() / denom
+            g = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        val = val + loss.detach()
+        for k, gk in zip(leaves, g):
+            if gk is not None:
+                grads[k] += gk
+    return val, grads
+
+
+def value_and_grad_banded(apply_params, params, scene: Scene, camera: Camera,
+                          opts: RenderOptions, target, *, device, tracer=None,
+                          band_rows: int | None = None):
+    """Pixel-L2 inverse-rendering loss and gradients, band by band.
+
+    loss(params) = Σ_px (render(apply_params(scene, params)) − target)²
+                   / (H·W·3),
+    taken per horizontal band of `band_rows` rows (default: one band of the
+    whole frame), each band's gradients summed. `apply_params(scene,
+    params) -> Scene` grafts the parameters ({name: tensor}, fresh leaves on
+    `device`) into the device copy of `scene`. → (loss [] f32, {name:
+    gradient}) on `device`.
+    """
+    band_rows = opts.height if band_rows is None else min(band_rows,
+                                                          opts.height)
+    device = torch.device(device)
+    dscene, dcam = scene.to(device), camera.to(device)
+
+    def band(leaves, r0, rb):
+        return render(apply_params(dscene, leaves), dcam, opts,
+                      device=device, tracer=tracer, row0=r0, rows=rb)[0]
+
+    bands = [(r0, min(band_rows, opts.height - r0))
+             for r0 in range(0, opts.height, band_rows)]
+    return value_and_grad_bands(band, params, opts, target, bands,
+                                device=device)

@@ -162,10 +162,14 @@ def test_tie_gradients_follow_the_reference():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["optimize", "--device", "cpu"], "item 5"),
     (["optimize", "--kernel", "--preset", "mesh", "--device", "cpu"],
-     "item 10"),
+     "spheres preset"),
+    (["optimize", "--plan", "--preset", "mesh", "--device", "cpu"],
+     "spheres preset"),
+    (["optimize", "--kernel", "--plan", "--device", "cpu"], "pick one"),
 ])
 def test_cli_optimize_names_what_is_not_ported(argv, item):
+    """The fused trainers (--kernel, --plan) cover the mesh-free spheres
+    preset only, and are two trainers: the CLI names why it refuses."""
     with pytest.raises(SystemExit, match=item):
         cli.main(argv)
