@@ -1551,6 +1551,481 @@ def trainers_main_path():
     return plan_launches
 
 
+# glass compaction (config3 1024² d4 at the shipping cap) and the BVH walk
+COMPACT_CAP = 0.5
+COMPACT_ATOL = 1e-5   # against the uncompacted frame (tests/test_compact.py)
+REF_TILE = 16384      # the reference's config3 tile, 64 strided tiles
+GLASS_STEPS = 3       # timed glass fwd+bwd steps after a warm-up
+# the glass step's cap: the plan-alive share of the band that holds the
+# spheres (rows 512–767) reaches 0.54 at its first glass bounce, so 4 bands
+# at cap 0.5 drop lanes there; cap 1 is exact for every band
+GLASS_CAP = 1.0
+# BVH walk operations: Möller–Trumbore per tested triangle (the walk's); per
+# node step the slab test: 6 sub, 6 mul, 6 per-axis min/max, 3 max and 2
+# min over the axes (csrc/bvh_walk.cu)
+BVH_OPS = {"test": 46, "step": 23}
+# bytes per launch: per node its two 16-byte rows, its lowest id and its 8
+# octants' links (8 bytes each); per triangle its 40 bytes (v0|e1|e2|id);
+# per ray orig + dir in (24) and t + idx out (8), the mask (1) and max_t (4)
+# where given
+BVH_NODE_BYTES, BVH_TRI_BYTES, BVH_RAY_BYTES = 32 + 4 + 64, 40, 32
+
+
+def frame_times(fn, n=FRAMES):
+    """Host seconds of `n` runs of `fn()`, each ended by a synchronize,
+    after a warm-up → (median, all, peak MiB of the timed runs)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (sorted(times)[n // 2], times,
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def compact_phase(device):
+    """C1: config3 1024² d4 through the wavefront with compacted lanes.
+    The main path `cli render --config config3 --compact 0.5` (grid walk K5
+    on the Cornell walls); then render_banded compacted against the
+    uncompacted frame (≤ COMPACT_ATOL), against K1's image (the fused
+    standard) and against itself (two runs bit-equal); frame times at the
+    preset's strided tiles and at one tile per frame, compacted and not.
+    → (K5 launches of the main path, the compacted frame)."""
+    import dataclasses
+    import re
+
+    import torch
+
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.io.image import load_ppm, to_u8
+    from raytracer_tpu_torch.ops import fused as F
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.renderer import render_banded
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    print(card_line(), flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    out = os.path.join(OUT, "config3_compact.ppm")
+    argv = ["render", "--config", "config3", "--compact", str(COMPACT_CAP),
+            "--out", out]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)  # warm-up
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    W.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = W.launches
+    text = buf.getvalue()
+    print(text, end="")
+    rays = float(re.search(r"— (\S+) rays", text).group(1))
+    print(f"main path: cli render --config config3 --compact {COMPACT_CAP}: "
+          f"{wall:.4f} s wall (tracer build and image write included), "
+          f"{rays:.6g} rays, {k5} walk launches", flush=True)
+    assert k5 > 0, "the compacted config3 frame never launched the walk"
+    assert "WARNING" not in text, text
+
+    scene, cam, opts = load_scene_cli("config3")
+    tracer = build_tracer(scene, "auto", device)
+    oc = dataclasses.replace(opts, compact_cap=COMPACT_CAP)
+    img, traced, dropped = render_banded(scene, cam, oc, device=device,
+                                         tracer=tracer, count_rays=True)
+    full, f_traced = render_banded(scene, cam, opts, device=device,
+                                   tracer=tracer, count_rays=True)
+    again = render_banded(scene, cam, oc, device=device, tracer=tracer)[0]
+    k1 = F.FusedWhitted(scene, cam, opts, device=device).render()
+    torch.cuda.synchronize()
+    d_full = float((img - full).abs().max())
+    diff = (img - k1).abs().amax(dim=-1)
+    bad = float((diff > PX_TOL).float().mean())
+    cli_img = load_ppm(out)
+    msg = (f"config3 {opts.width}x{opts.height} d{opts.max_depth} cap "
+           f"{COMPACT_CAP}: dropped {float(dropped):.0f}; vs the uncompacted "
+           f"frame max |d| {d_full:.3g} (limit {COMPACT_ATOL}), traced "
+           f"{float(traced):.6g} vs {float(f_traced):.6g}; vs K1's image "
+           f"{bad:.5%} pixels off >1/255 (limit {PX_BAD:.1%}); two runs "
+           f"bit-equal {torch.equal(img, again)}; CLI image = frame "
+           f"{bool((abs(cli_img - to_u8(img) / 255.0) < 1e-6).all())}")
+    print(msg, flush=True)
+    assert float(dropped) == 0.0, msg
+    assert d_full <= COMPACT_ATOL, msg
+    assert bad <= PX_BAD, msg
+    assert torch.equal(img, again), msg
+    assert float(traced) == float(f_traced), msg
+
+    one = opts.width * opts.height
+    for tile in (REF_TILE, one):
+        for cap in (COMPACT_CAP, None):
+            o = dataclasses.replace(opts, compact_cap=cap, tile_rays=tile)
+            W.launches = 0
+            med, runs, peak = frame_times(lambda: render_banded(
+                scene, cam, o, device=device, tracer=tracer,
+                count_rays=True))
+            per = W.launches // (len(runs) + 1)
+            res = render_banded(scene, cam, o, device=device, tracer=tracer,
+                                count_rays=True)
+            same = torch.equal(res[0], img)
+            print(f"config3 {opts.width}x{opts.height} d{opts.max_depth}, "
+                  f"tile {tile} "
+                  f"({-(-one // tile)} tiles), compact "
+                  f"{cap if cap else 'off'}: {med:.4f} s (median of "
+                  f"{len(runs)} frames; {', '.join(f'{t:.4f}' for t in runs)}), "
+                  f"{float(res[1]):.6g} traced rays, {per} walk launches, "
+                  f"peak {peak:.1f} MiB; image = the compacted frame: {same}",
+                  flush=True)
+            assert same, (tile, cap)
+    return k5, img
+
+
+def glass_step_phase(frame3, device):
+    """C2: config3 1024² d4 fwd+bwd through the plan-compacted replay: K1's
+    full plan per band (`FusedWhitted.bind` → `render_plan`), autograd over
+    the compacted shading replay (`value_and_grad_replay`, GLASS_CAP, bands
+    of max(64, H/4) rows) for the sphere centers and material albedos,
+    target = the compacted frame × 0.9. Against the uncompacted replay, the
+    replay image against K1's, two runs; step time split into plan and
+    replay vg. Then the shipping cap 0.5 in 4 bands (drops, reported) and
+    in one band. → K1 full-plan launches of one step."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_tpu_torch.ops import fused as F
+    from raytracer_tpu_torch.ops.replay import (replay_band_vg,
+                                                replay_render,
+                                                value_and_grad_replay)
+    from raytracer_tpu_torch.utils.hostload import load_scene_cli
+
+    print(card_line(), flush=True)
+    scene, cam, opts = load_scene_cli("config3")
+    oc = dataclasses.replace(opts, compact_cap=GLASS_CAP)
+    dscene = scene.to(device)
+    fw = F.FusedWhitted(scene, cam, oc, device=device, param_inputs=True)
+    p0 = {"center": dscene.spheres.center, "albedo": dscene.materials.albedo}
+    target = frame3 * 0.9
+    band_rows = max(64, opts.height // 4)
+
+    def builder(p):
+        return fw.bind(center=p["center"].detach(),
+                       albedo=p["albedo"].detach())
+
+    def step(o, drops=None):
+        return value_and_grad_replay(with_params, p0, dscene, cam, o, target,
+                                     builder, band_rows=band_rows,
+                                     device=device, dropped=drops)
+
+    step(oc)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    drops = []
+    F.plan_launches = 0
+    t0 = time.perf_counter()
+    loss, grads = step(oc, drops)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = F.plan_launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    assert k1 > 0, "the glass step never launched K1's full plan"
+    assert len(drops) == -(-opts.height // band_rows), drops
+    assert all(float(d) == 0.0 for d in drops), [float(d) for d in drops]
+
+    # the step split by CUDA events: K1's plan, then the replay's vg
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(GLASS_STEPS * len(drops))]
+    k = 0
+    for _ in range(GLASS_STEPS):
+        for r0 in range(0, opts.height, band_rows):
+            rb = min(band_rows, opts.height - r0)
+            ev[k][0].record()
+            _, wins, occs = builder(p0).render_plan(row0=r0, rows=rb)
+            ev[k][1].record()
+            replay_band_vg(p0, dscene, cam, target, (wins, occs), r0,
+                           apply_params=with_params, opts=oc, rb=rb,
+                           device=device)
+            ev[k][2].record()
+            k += 1
+    torch.cuda.synchronize()
+    plan_ms = sum(e[0].elapsed_time(e[1]) for e in ev) / GLASS_STEPS
+    vg_ms = sum(e[1].elapsed_time(e[2]) for e in ev) / GLASS_STEPS
+    print(f"config3 {opts.width}x{opts.height} d{opts.max_depth} glass "
+          f"fwd+bwd (plan-compacted replay, cap {GLASS_CAP}, {len(drops)} "
+          f"bands of {band_rows} rows): step {plan_ms + vg_ms:.3f} ms = "
+          f"K1 plan {plan_ms:.3f} + replay vg {vg_ms:.3f} (CUDA events, mean "
+          f"of {GLASS_STEPS} after a warm-up); one step {wall:.4f} s wall; "
+          f"{k1} full-plan launches per step; peak {peak:.1f} MiB; dropped "
+          f"per band {[float(d) for d in drops]}", flush=True)
+
+    # against the uncompacted replay, the replay image, two runs
+    torch.cuda.reset_peak_memory_stats()
+    v_ref, g_ref = step(dataclasses.replace(oc, compact_cap=None))
+    peak_u = torch.cuda.max_memory_allocated() / 2**20
+    d_loss = abs(float(loss) - float(v_ref)) / abs(float(v_ref))
+    d_grad = max_rel(grads, g_ref)
+    loss2, grads2 = step(oc)
+    d_rerun = max_rel(grads2, grads)
+    img, wins, occs = builder(p0).render_plan()
+    with torch.no_grad():
+        rimg, _, rdrop = replay_render(dscene, cam, oc, (wins, occs),
+                                       device=device)
+    diff = (rimg - img).abs().amax(dim=-1)
+    bad = float((diff > PX_TOL).float().mean())
+    msg = (f"glass step vs the uncompacted replay (peak {peak_u:.1f} MiB): "
+           f"loss {float(loss):.9g} vs {float(v_ref):.9g} (rel {d_loss:.3g}, "
+           f"limit {VG_LOSS_RTOL}), gradients within {d_grad:.3g} of each max "
+           f"(limit {VG_GRAD_TOL}); two runs: losses {float(loss):.9g} and "
+           f"{float(loss2):.9g}, gradients within {d_rerun:.3g}; replay image "
+           f"vs K1's: {bad:.5%} pixels off >1/255 (limit {PX_BAD:.1%}), "
+           f"dropped {float(rdrop):.0f}")
+    print(msg, flush=True)
+    assert d_loss <= VG_LOSS_RTOL and d_grad <= VG_GRAD_TOL, msg
+    assert float(loss2) == float(loss) and d_rerun <= RERUN_GRAD_TOL, msg
+    assert bad <= PX_BAD and float(rdrop) == 0.0, msg
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grads.values()), msg
+
+    # the shipping cap 0.5: in the 4 bands (band 3 drops lanes: reported,
+    # and the loss it loses), and in one band of the whole frame (exact)
+    for rows in (band_rows, opts.height):
+        o5 = dataclasses.replace(opts, compact_cap=COMPACT_CAP)
+        fw5 = F.FusedWhitted(scene, cam, o5, device=device,
+                             param_inputs=True)
+
+        def step5(drops5=None):
+            return value_and_grad_replay(
+                with_params, p0, dscene, cam, o5, target,
+                lambda p: fw5.bind(center=p["center"].detach(),
+                                   albedo=p["albedo"].detach()),
+                band_rows=rows, device=device, dropped=drops5)
+
+        step5()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        drops5 = []
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss5, grads5 = step5(drops5)
+        e1.record()
+        torch.cuda.synchronize()
+        d5 = abs(float(loss5) - float(v_ref)) / abs(float(v_ref))
+        g5 = max_rel(grads5, g_ref)
+        msg = (f"the glass step at cap {COMPACT_CAP} in bands of {rows} rows: "
+               f"{e0.elapsed_time(e1):.3f} ms (CUDA events, one step after a "
+               f"warm-up), peak "
+               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+               f"dropped per band {[float(d) for d in drops5]}; vs the "
+               f"uncompacted replay: loss rel {d5:.3g}, gradients within "
+               f"{g5:.3g} of each max")
+        print(msg, flush=True)
+        if rows == opts.height:  # one band: exact
+            assert float(drops5[0]) == 0.0, msg
+            assert d5 <= VG_LOSS_RTOL and g5 <= VG_GRAD_TOL, msg
+    return k1
+
+
+def compare_hits(name, ref, got, max_t=None):
+    """Hold one search's result to another's on hits: identical hit/miss
+    sets, t at T_RTOL, winner ids of hits on all but ID_MAX_DIFF of them
+    (a miss's id is each walk's own). In any-hit mode (`max_t`) only the
+    verdicts t < max_t compare: each walk stops at its own first hit."""
+    import torch
+
+    (t0, i0), (t1, i1) = ref, got
+    if max_t is not None:
+        occ = int(((t0 < max_t) != (t1 < max_t)).sum())
+        msg = (f"{name}: {t0.shape[0]} rays, {int((t0 < max_t).sum())} "
+               f"occluded, occlusion diffs {occ}")
+        print(msg, flush=True)
+        assert occ == 0, msg
+        return
+    fin0, fin1 = torch.isfinite(t0), torch.isfinite(t1)
+    n_flip = int((fin0 != fin1).sum())
+    both = fin0 & fin1
+    rel = float(((t1[both] - t0[both]).abs() / t0[both].abs()).max()) \
+        if bool(both.any()) else 0.0
+    ids = float((i0[both] != i1[both]).float().mean()) if bool(
+        both.any()) else 0.0
+    msg = (f"{name}: {t0.shape[0]} rays, {int(fin0.sum())} hits, hit/miss "
+           f"flips {n_flip}, max rel dt {rel:.3g}, hit id diff {ids:.5f}")
+    print(msg, flush=True)
+    assert n_flip == 0 and rel <= T_RTOL and ids <= ID_MAX_DIFF, msg
+
+
+def bvh_phase(scene, cam, opts, grid, grid_img, device):
+    """C3: the BVH walk. The kernel vs its plain version on config4's 1080p
+    ray sets (bit for bit) and vs the grid walk K5 on them; the main path
+    `cli render --config config4 --tracer bvh` at 1920×1080 d4 against the
+    grid frame; kernel and plain times over that frame's launches and the
+    bound from the work they need. → the JSON entry's numbers."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.accel.bvh import BVHTracer, bvh_walk
+    from raytracer_tpu_torch.io.image import load_ppm, to_u8
+    from raytracer_tpu_torch.ops import bvh_walk as BW
+    from raytracer_tpu_torch.ops import walk as W
+
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    tracer = BVHTracer.build(scene, device)
+    b, table = tracer._bvh, tracer._table
+    print(f"BVH: {b.n_nodes} nodes, leaves of ≤{b.capacity}, {b.n_tris} "
+          f"tris, built in {time.perf_counter() - t0:.2f} s", flush=True)
+    sets = walk_ray_sets(scene, cam, opts, grid, device)
+    sets.append(("primary-occl6", sets[0][1], sets[0][2],
+                 torch.full_like(sets[0][1][:, 0], 6.0), None))
+    err = 0.0
+    for name, o, d, mx, act in sets:
+        o, d = o.contiguous(), d.contiguous()
+        got = BW.bvh_walk_cuda(b, table, o, d, opts.t_min, mx, act)
+        ref = bvh_walk(b, *table.soa, o, d, opts.t_min, mx, act)
+        g = W.grid_walk(grid._grid, grid._table, o, d, opts.t_min, mx, act)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        fin = torch.isfinite(ref[0])
+        if bool(fin.any()):
+            err = max(err, float((got[0][fin] - ref[0][fin]).abs().max()))
+        print(f"bvh {name}: kernel bit-equal to the plain walk: {same}",
+              flush=True)
+        assert same, name
+        compare_hits(f"bvh {name} vs the grid walk", g, got, mx)
+
+    os.makedirs(OUT, exist_ok=True)
+    out = os.path.join(OUT, "config4_bvh.ppm")
+    argv = ["render", "--config", "config4", "--tracer", "bvh", "--out", out]
+    with recording(BW, ("bvh_walk_cuda",)) as rec, \
+            contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv)  # warm-up
+    torch.cuda.synchronize()
+    calls = rec["bvh_walk_cuda"]
+    walls = []
+    for _ in range(3):
+        buf = io.StringIO()
+        BW.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = BW.launches
+    print(buf.getvalue(), end="")
+    got = load_ppm(out)
+    want = to_u8(grid_img) / 255.0
+    bad_px = int((np.abs(got - want).max(axis=-1) > IMG_TOL).sum())
+    bad = bad_px / (got.shape[0] * got.shape[1])
+    msg = (f"main path: cli render config4 1920x1080 d4 --tracer bvh: "
+           f"{sorted(walls)[1]:.4f} s wall (median of 3; "
+           f"{', '.join(f'{t:.4f}' for t in walls)}; BVH build and image "
+           f"write included), {launches} BVH walk launches; vs the grid "
+           f"frame {bad_px} pixels ({bad:.4%}) off by > {IMG_TOL}")
+    print(msg, flush=True)
+    assert launches > 0 and launches == len(calls), (launches, len(calls))
+    assert bad <= IMG_BAD, msg
+
+    ms = cuda_ms(lambda: [BW.bvh_walk_cuda(*a) for a in calls], 5)
+    plain_ms = cuda_ms(lambda: [bvh_walk(a[0], *a[1].soa, *a[2:])
+                                for a in calls], 1, warmup=False)
+    stats = {}
+    nbytes = 0.0
+    for a in calls:
+        bvh_walk(a[0], *a[1].soa, *a[2:], stats=stats)
+        n = a[2].shape[0]
+        nbytes += (b.n_nodes * BVH_NODE_BYTES + b.n_tris * BVH_TRI_BYTES
+                   + n * (BVH_RAY_BYTES + (a[6] is not None)
+                          + 4 * (a[5] is not None)))
+    ops = (BVH_OPS["step"] * float(stats["steps"])
+           + BVH_OPS["test"] * float(stats["tests"]))
+    b_ms, b_by = bound_ms(ops, nbytes)
+    print(f"bvh_walk over the frame's {len(calls)} launches: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms; {stats['steps']:.6g} node "
+          f"steps, {stats['tests']:.6g} triangle tests, {ops:.6g} ops, "
+          f"{nbytes:.6g} bytes → bound {b_ms:.4f} ms ({b_by}), "
+          f"{b_ms / ms:.1%} of bound", flush=True)
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def exact_grid_phase(scene, cam, opts, box, box_img, device):
+    """C4: the grid built with exact binning (`GridTracer.build(...,
+    exact=True)`) on config4: cell occupancy and build time both ways, K5
+    vs its plain version on the exact grid (bit for bit) over config4's ray
+    sets and the kernel's time over the four sets both ways, and the 1080p
+    d4 frame against the box-binned grid's (the goldens' standard).
+    → K5 launches of the exact grid's frame."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.accel.grid import GridTracer, walk_init
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.renderer import render_banded
+
+    print(card_line(), flush=True)
+    built = {}
+    for exact in (False, True):
+        t0 = time.perf_counter()
+        tr = GridTracer.build(scene, device, exact=exact)
+        torch.cuda.synchronize()
+        built[exact] = (tr, time.perf_counter() - t0)
+    exact_tr = built[True][0]
+    for exact, (tr, dt) in built.items():
+        g = tr._grid
+        occ = (g.cell_soa[..., 9] != g.n_tris).sum(dim=1).float()
+        print(f"grid {'exact' if exact else 'box'} binning: res {g.res}, "
+              f"capacity {g.capacity}, cell occupancy mean "
+              f"{float(occ.mean()):.3f} (non-empty cells "
+              f"{float(occ[occ > 0].mean()):.3f}), max {int(occ.max())}, "
+              f"{g.overflow.shape[0]} overflow, built in {dt:.2f} s",
+              flush=True)
+
+    sets = walk_ray_sets(scene, cam, opts, box, device)
+    sets.append(("primary-occl6", sets[0][1], sets[0][2],
+                 torch.full_like(sets[0][1][:, 0], 6.0), None))
+    g, table = exact_tr._grid, exact_tr._table
+    for name, o, d, mx, act in sets:
+        o, d = o.contiguous(), d.contiguous()
+        st = walk_init(g, o, d, opts.t_min, act)
+        got = W.grid_walk_cuda(g, table, o, d, st, opts.t_min, mx)
+        ref = W.grid_walk_reference(g, table, o, d, opts.t_min, mx, act)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        print(f"exact grid {name}: K5 bit-equal to the plain walk: {same}",
+              flush=True)
+        assert same, name
+    for exact, (tr, _) in built.items():
+        pieces = []
+        for name, o, d, mx, act in sets[:-1]:
+            o, d = o.contiguous(), d.contiguous()
+            pieces.append((o, d, mx, walk_init(tr._grid, o, d, opts.t_min,
+                                               act)))
+        ms = cuda_ms(lambda: [W.grid_walk_cuda(tr._grid, tr._table, o, d, st,
+                                               opts.t_min, mx)
+                              for o, d, mx, st in pieces], 5)
+        print(f"K5 over config4's four 1080p walk sets, "
+              f"{'exact' if exact else 'box'} grid: {ms:.4f} ms", flush=True)
+
+    W.launches = 0
+    img, _ = render_banded(scene, cam, opts, device=device, tracer=exact_tr)
+    torch.cuda.synchronize()
+    k5 = W.launches
+    diff = (img - box_img).abs().amax(dim=-1).cpu().numpy()
+    bad = float((diff > IMG_TOL).mean())
+    msg = (f"config4 1920x1080 d4 frame on the exact grid: {k5} walk "
+           f"launches; vs the box grid's frame {bad:.4%} pixels off by > "
+           f"{IMG_TOL} (limit {IMG_BAD:.1%}), max {float(np.max(diff)):.4f}")
+    print(msg, flush=True)
+    assert k5 > 0 and bad <= IMG_BAD, msg
+    return k5
+
+
 def main() -> int:
     import torch
 
@@ -1655,6 +2130,26 @@ def main() -> int:
     brute_t = {kind: brute_times(kind, brute_calls[kind]) for kind in BRUTE}
     del brute_calls
 
+    _phase("BVH walk kernel vs plain version and vs K5, config4 rays at "
+           "1920x1080; main path: cli render --config config4 --tracer bvh")
+    bvh = bvh_phase(scene, cam, opts, tracer, img, device)
+
+    _phase("golden on the card through --tracer bvh")
+    golden_phase("config4", 192, 108, device, "bvh")
+
+    _phase("exact binning: config4's grid built with the separating-axis "
+           "test")
+    k5_exact = exact_grid_phase(scene, cam, opts, tracer, img, device)
+
+    _phase("main path: cli render --config config3 --compact 0.5 (1024x1024 "
+           "d4)")
+    k5_c3, frame3 = compact_phase(device)
+
+    _phase("main path: config3 1024x1024 d4 glass fwd+bwd (plan-compacted "
+           "replay of K1's full plan)")
+    k1_glass = glass_step_phase(frame3, device)
+    del frame3
+
     _phase("fused kernel vs plain version on the card")
     fused_err = {m: 0.0 for m in K1_MODES}
 
@@ -1724,6 +2219,8 @@ def main() -> int:
 
     _phase("main path: cli optimize (autograd), --plan, --preset mesh")
     k1_plan_paths["cli optimize --plan --steps 30"] = trainers_main_path()
+    k1_plan_paths["config3 1024x1024 d4 glass fwd+bwd step "
+                  "(value_and_grad_replay, cap 1)"] = k1_glass
     k1_launches["plan"] = sum(k1_plan_paths.values())
     k1_paths = {"image": {"cli render --tracer fused": k1_launches["image"]},
                 "live_plan": {"cli optimize --kernel --steps 30":
@@ -1766,11 +2263,15 @@ def main() -> int:
         "name": "grid_walk", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/grid_walk.cu",
         "replaces": "raytracer_tpu/ops/pallas_walk.py:111",
-        "launches": launches + k5_step, "max_abs_err": err, "ms": ms,
+        "launches": launches + k5_step + k5_c3 + k5_exact,
+        "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": walk_bound, "bound_by": walk_by,
         "library_ms": None, "main_paths": {
             "cli render --config config4 (1080p d4 frame)": launches,
-            "config4 1080p d4 fwd+bwd step (record_plan)": k5_step}}] + [{
+            "config4 1080p d4 fwd+bwd step (record_plan)": k5_step,
+            "cli render --config config3 --compact 0.5 (1024² d4 frame)":
+                k5_c3,
+            "config4 1080p d4 frame on the exact grid": k5_exact}}] + [{
         "name": "fused_whitted" + ("" if m == "image" else "_" + m),
         "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_whitted.cu",
@@ -1793,7 +2294,18 @@ def main() -> int:
         "plain_ms": brute_t[kind][mode][1],
         "bound_ms": brute_t[kind][mode][2],
         "bound_by": brute_t[kind][mode][3], "library_ms": None}
-        for kind in BRUTE for m, mode in enumerate(("nearest", "occluded"))]}))
+        for kind in BRUTE for m, mode in enumerate(("nearest", "occluded"))]
+        + [{
+        "name": "bvh_walk", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/bvh_walk.cu",
+        "replaces": "raytracer_tpu/accel/bvh.py:348 (XLA while_loop; no "
+                    "pallas_call)",
+        "launches": bvh["launches"], "max_abs_err": bvh["err"],
+        "ms": bvh["ms"], "plain_ms": bvh["plain_ms"],
+        "bound_ms": bvh["bound_ms"], "bound_by": bvh["bound_by"],
+        "library_ms": None, "main_paths": {
+            "cli render --config config4 --tracer bvh (1080p d4 frame)":
+                bvh["launches"]}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

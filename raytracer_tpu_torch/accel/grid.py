@@ -5,7 +5,9 @@
   a fixed-capacity cell table `cell_tris[ncells, C]` (sentinel-padded), with
   the triangles of cells that overflow C spilled into a small global
   `overflow` list that every walk brute-forces once. The arrays equal the
-  reference build's byte for byte.
+  reference build's byte for byte. `exact=True` lists a triangle only in
+  the cells it overlaps (separating-axis test, accel/satbin.py) instead of
+  every cell its bounding box touches.
 - `cell_soa [ncells, C, 10]`: each listed triangle pre-gathered as
   v0|e1|e2|id rows; sentinel slots hold the zero triangle (always a miss)
   with id = n_tris, and slots fill front to back.
@@ -48,10 +50,13 @@ class GridData:
     n_tris: int              # sentinel id (= index of the degenerate pad tri)
 
 
-def build_grid(verts, tris, capacity: int = CAPACITY,
-               device="cpu") -> GridData:
+def build_grid(verts, tris, capacity: int = CAPACITY, device="cpu",
+               exact: bool = False) -> GridData:
     """Host-side grid build from concrete arrays; tensors land on `device`.
-    Cells that list more than `capacity` triangles spill into `overflow`."""
+    Cells that list more than `capacity` triangles spill into `overflow`.
+    `exact` bins by triangle–cell overlap instead of bounding boxes: fewer
+    candidates per cell, the same hits (a hit point's cell overlaps its
+    triangle), winners equal up to exact-t ties at cell boundaries."""
     # f32-first: the native builder's ABI is f32; rounding here keeps the two
     # builders byte-identical even for f64 input
     verts = np.asarray(np.asarray(verts, np.float32), np.float64)
@@ -90,7 +95,17 @@ def build_grid(verts, tris, capacity: int = CAPACITY,
     from raytracer_tpu_torch.utils.native import native_lib
 
     lib = native_lib()
-    if lib is not None:
+    if exact:
+        if lib is not None and lib.has_grid_sat:
+            cell_tris, ov = lib.grid_build(verts.astype(np.float32), tris,
+                                           bmin, cell, (nx, ny, nz), capacity,
+                                           exact=True)
+        else:
+            from raytracer_tpu_torch.accel.satbin import bin_exact
+
+            cell_tris, ov = bin_exact(verts, tris, bmin, cell, (nx, ny, nz),
+                                      capacity)
+    elif lib is not None:
         cell_tris, ov = lib.grid_build(verts.astype(np.float32), tris, bmin,
                                        cell, (nx, ny, nz), capacity)
     else:
@@ -206,10 +221,11 @@ class GridTracer:
         self._table = pack_cell_table(grid)
 
     @staticmethod
-    def build(scene: Scene, device, capacity: int = CAPACITY) -> "GridTracer":
+    def build(scene: Scene, device, capacity: int = CAPACITY,
+              exact: bool = False) -> "GridTracer":
         grid = build_grid(np.asarray(scene.meshes.verts),
                           np.asarray(scene.meshes.tris), capacity=capacity,
-                          device=device)
+                          device=device, exact=exact)
         return GridTracer(scene, grid, device)
 
     @torch.no_grad()

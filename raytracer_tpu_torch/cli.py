@@ -6,6 +6,10 @@
       --width 1920 --height 1080 --out c2.png
   python -m raytracer_tpu_torch.cli render --config config1 --width 64 \\
       --device cpu --out c1.ppm
+  python -m raytracer_tpu_torch.cli render --config config3 --compact 0.5 \\
+      --out c3.png
+  python -m raytracer_tpu_torch.cli render --config config4 --tracer bvh \\
+      --out c4.png
   python -m raytracer_tpu_torch.cli export --config config2 --out my.txt
   python -m raytracer_tpu_torch.cli render --scene my.txt --out my.png
   python -m raytracer_tpu_torch.cli optimize --steps 30 --out r.png
@@ -89,20 +93,27 @@ def cmd_render(args):
         _save(args.out, img)
         return
 
-    from raytracer_tpu_torch.renderer import render_banded, render_ssaa
+    from raytracer_tpu_torch.renderer import (render_banded, render_ssaa,
+                                              use_compact)
 
+    if args.compact:
+        opts = dataclasses.replace(opts, compact_cap=args.compact)
     t0 = time.perf_counter()
     tracer = build_tracer(scene, args.tracer, device)
     if s > 1:
-        img, traced = render_ssaa(scene, cam, opts, device=device, factor=s,
-                                  tracer=tracer, count_rays=True)
+        img, traced, *dropped = render_ssaa(
+            scene, cam, opts, device=device, factor=s, tracer=tracer,
+            count_rays=True)
     else:
-        img, traced = render_banded(scene, cam, opts, device=device,
-                                    tracer=tracer, count_rays=True)
+        img, traced, *dropped = render_banded(
+            scene, cam, opts, device=device, tracer=tracer, count_rays=True)
     _sync(device)
     img = img.cpu().numpy()
     dt = time.perf_counter() - t0
     rays = float(traced)
+    if use_compact(scene, opts) and float(dropped[0]) > 0:
+        print(f"WARNING: compaction dropped {float(dropped[0]):.0f} alive "
+              "lanes — image is missing radiance; raise --compact")
     print(f"{args.config}: {opts.width}x{opts.height} depth={opts.max_depth}"
           f"{aa} on {device} in {dt:.2f}s (tracer and kernel builds "
           f"included) — {rays:.3g} rays, {rays / dt:.3g} rays/s")
@@ -316,15 +327,21 @@ def main(argv=None):
     pr.add_argument("--height", type=int, default=0)
     pr.add_argument("--max-depth", type=int, default=None)
     pr.add_argument("--tracer", default="auto",
-                    choices=["auto", "none", "grid", "pallas", "mat",
+                    choices=["auto", "none", "grid", "bvh", "pallas", "mat",
                              "fused"],
                     help="mesh winner-search backend (auto = grid when the "
-                         "scene has triangles; none = dense search; pallas = "
+                         "scene has triangles; none = dense search; bvh = "
+                         "threaded BVH walk (accel/bvh.py); pallas = "
                          "brute-force kernel over all triangles "
                          "(ops/pallas_trace.py); mat = linear-expansion "
                          "sweep over all triangles (ops/mat_trace.py); "
                          "fused = the single-kernel forward for scenes "
                          "without big meshes, glass included)")
+    pr.add_argument("--compact", type=float, default=0,
+                    help="wavefront lane compaction cap: keep at most N × "
+                         "the tile's primary lanes per bounce instead of "
+                         "doubling glass buffers (0 = off); warns if any "
+                         "alive lane is dropped")
     pr.add_argument("--ssaa", type=int, default=1,
                     help="supersampling factor: trace an N× frame and "
                          "box-average N² subsamples per pixel")

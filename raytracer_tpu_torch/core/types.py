@@ -265,9 +265,9 @@ class RenderOptions:
 
     `remat_tiles` and `remat_policy` ("plan" or "full") set how a
     differentiable render recomputes its tiles in the backward (renderer.py).
-    `compact_cap` belongs to glass compaction, which this package does not
-    have yet: the renderer refuses a set `compact_cap` rather than ignoring
-    it.
+    `compact_cap` turns on wavefront compaction (renderer.use_compact):
+    glass wavefronts, and any wavefront under a fractional cap, keep at most
+    cap × the tile's primary lanes per bounce.
     """
 
     width: int = 256

@@ -147,6 +147,13 @@ def load_library() -> ctypes.CDLL:
             [p] * 5                       # orig, dir, max_t, active, tris
             + [i, i, f, i]                # n, tp, t_min, occlusion
             + [p] * 4)                    # t_out, i_out, occ_out, stream
+        lib.rt_bvh_walk.restype = i
+        lib.rt_bvh_walk.argtypes = (
+            [p] * 8                       # orig, dir, active, max_t, nodes,
+                                          # minid, links, slots
+            + [i, i, i, f, i]             # n, n_nodes, n_tris, t_min,
+                                          # occlusion
+            + [p, p, p])                  # t_out, i_out, stream
         lib.rt_mat_trace.restype = i
         lib.rt_mat_trace.argtypes = (
             [p] * 4                       # feats, max_t, active, weights

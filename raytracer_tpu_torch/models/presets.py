@@ -123,8 +123,11 @@ def config3_cornell():
         lights=Lights.build([(0.0, 1.85, -6.0)], [(1.0, 1.0, 1.0)]),
     )
     cam = Camera.build(pos=(0.0, 0.0, 0.0), fov_deg=50.0)
+    # one tile per frame on the card: the reference's 16,384-ray tiles (64
+    # per frame) made the 1024² d4 wavefront host-bound, 3.0 s against
+    # 0.051 s compacted and 0.139 s uncompacted (H100, PERF.md §6, PR 9)
     opts = RenderOptions(width=1024, height=1024, max_depth=4,
-                         remat_tiles=False)
+                         remat_tiles=False, tile_rays=1024 * 1024)
     return scene, cam, opts
 
 

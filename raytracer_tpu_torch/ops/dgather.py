@@ -1,5 +1,5 @@
-"""Gathers from small parameter tables with a sort-free backward
-(counterpart of `raytracer_tpu/ops/dgather.py`: `tselect` and `pgather`).
+"""Gathers with a scatter-free backward (counterpart of
+`raytracer_tpu/ops/dgather.py`: `tselect`, `pgather` and `permute_take`).
 
 The differentiable recompute (ops/trace.surface_at) gathers per-lane rows
 from tiny scene tables — sphere centers [Ns,3], material albedos [M,3],
@@ -12,6 +12,10 @@ each row's run of duplicates.
 builds the one-hot mask [N, K] and reduces `onehotᵀ @ ct` — one dense
 product, no sort and no scatter. Only for small K (the mask costs N·K):
 bigger tables (mesh vertices) keep the native gather.
+
+`permute_take(x, order, pos)` equals `x[order]` for the compaction of a
+wavefront (renderer._compact); its backward is a gather by the inverse map
+`pos`, not a scatter of the cotangents.
 """
 
 import torch
@@ -58,3 +62,28 @@ def pgather(table, idx):
             or not (torch.is_grad_enabled() and table.requires_grad)):
         return table[idx]
     return _OneHotGather.apply(table, idx)
+
+
+class _PermuteTake(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, order, pos):
+        ctx.save_for_backward(pos)
+        ctx.cap = order.shape[0]
+        return x[order]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (pos,) = ctx.saved_tensors
+        kept = pos < ctx.cap
+        g = ct[torch.where(kept, pos, 0)]
+        g = torch.where(kept.reshape((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
+        return g, None, None
+
+
+def permute_take(x, order, pos):
+    """`x[order]`, where `order` [cap] is an injective prefix of a lane
+    permutation and `pos` [n = len(x)] its inverse: `order[pos[i]] == i`
+    wherever `pos[i] < cap` (both from one prefix sum, renderer.partition).
+    The backward is the gather `g[i] = ct[pos[i]]` where `pos[i] < cap`, 0
+    elsewhere. `order` and `pos` get no gradient."""
+    return _PermuteTake.apply(x, order, pos)

@@ -140,9 +140,26 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
     """Recompute t/normal/uv/material of the winner from the gathered
     primitive parameters (kind/idx are fixed integer inputs). The small
     sphere, plane and material tables are read through `pgather`/`tselect`;
-    the mesh tables keep the native gather (their rows are many)."""
+    the mesh tables keep the native gather (their rows are many).
+
+    A search may claim a hit whose recompute here misses (t = inf) on a
+    knife-edge candidate: such a lane is demoted to a miss. Its recomputed
+    t is replaced by 0 before anything is derived from it, so its point,
+    normal and albedo stay finite: the forward masks them, and the
+    backward's zero cotangents then meet no inf (0 · inf = NaN gradients at
+    config3 1024² d4 otherwise)."""
     n_rays = orig.shape[0]
     dev = orig.device
+    lost = torch.zeros((n_rays,), dtype=torch.bool, device=dev)
+
+    def finite_t(tk, m):
+        """A kind's recomputed t on its lanes `m`, 0 elsewhere and where
+        the recompute missed (recorded in `lost`)."""
+        nonlocal lost
+        ok = torch.isfinite(tk)
+        lost = lost | (m & ~ok)
+        return torch.where(m & ok, tk, 0.0)
+
     t = torch.zeros((n_rays,), dtype=torch.float32, device=dev)
     nrm = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     mat_id = torch.zeros((n_rays,), dtype=torch.int32, device=dev)
@@ -158,8 +175,7 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
         # index_put_ of every lane's cotangent (ops/dgather.py)
         c = pgather(sp.center, i)
         r = pgather(sp.radius, i)
-        ts = geom.sphere_t(orig, direc, c, r, t_min)
-        ts = torch.where(m, ts, 0.0)
+        ts = finite_t(geom.sphere_t(orig, direc, c, r, t_min), m)
         p = orig + ts[:, None] * direc
         ns = safe_div(p - c, r[:, None], valid=torch.abs(r[:, None]) > 1e-12)
         t = torch.where(m, ts, t)
@@ -172,8 +188,7 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
         i = torch.where(m, hit.idx, 0)
         p0 = pgather(pl.point, i)
         pn = pgather(pl.normal, i)
-        tp = geom.plane_t(orig, direc, p0, pn, t_min)
-        tp = torch.where(m, tp, 0.0)
+        tp = finite_t(geom.plane_t(orig, direc, p0, pn, t_min), m)
         p = orig + tp[:, None] * direc
         u = dot(p - p0, pgather(pl.tangent, i))
         v = dot(p - p0, pgather(pl.bitangent, i))
@@ -199,7 +214,7 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
         e1 = me.verts[tri[:, 1]] - v0
         e2 = me.verts[tri[:, 2]] - v0
         tt, u, v = geom.triangle_tuv(orig, direc, v0, e1, e2, t_min)
-        tt = torch.where(m, tt, 0.0)
+        tt = finite_t(tt, m)
         if me.smooth:
             n0, n1, n2 = (me.normals[tri[:, k]] for k in range(3))
             nt = normalize((1.0 - u - v)[:, None] * n0 + u[:, None] * n1
@@ -222,12 +237,7 @@ def surface_at(scene: Scene, orig, direc, hit: Hit, t_min: float) -> Surface:
             checker_mask = checker_mask | is_chk
             checker_albedo = torch.where(is_chk[:, None], calb, checker_albedo)
 
-    # A search may claim a hit whose recompute here misses (t = inf) on a
-    # knife-edge candidate; demote such lanes to a miss with a finite t so no
-    # NaN reaches p.
-    ok = torch.isfinite(t)
-    t = torch.where(ok, t, 0.0)
-    valid = (hit.kind != KIND_NONE) & ok
+    valid = (hit.kind != KIND_NONE) & ~lost
     p = orig + t[:, None] * direc
     mats = scene.materials
     albedo = torch.where(checker_mask[:, None], checker_albedo,

@@ -8,6 +8,15 @@ Glass scenes double the ray buffer per bounce ([reflect | refract] children
 concatenated); the pixel of buffer slot i is `i mod n_pixels`, so folding a
 [k·n0, 3] buffer back to pixels is a reshape + sum.
 
+Compacted wavefronts (`opts.compact_cap`, `use_compact`): once a bounce's
+buffer is wider than the cap (cap·tile lanes, 8-lane aligned), its lanes are
+partitioned alive-first (stable, two prefix sums) and only the first `cap`
+are kept; `dropped` counts alive lanes that did not fit (0 ⇒ exact). Each
+kept lane carries its slot in the uncompacted buffer, so the fold writes
+every lane back to that slot (unique slots, no atomics) and sums the same
+[k, n0, 3] buffer as the uncompacted wavefront: the compacted image is the
+uncompacted one bit for bit when nothing is dropped, and reruns are equal.
+
 The image is processed in tiles of `opts.tile_rays` primary rays, one after
 another, which bounds device memory at any resolution. With
 `opts.tile_block` the tiles are screen blocks instead of row-major runs, so
@@ -38,6 +47,7 @@ from raytracer_tpu_torch.core.types import (DIFFUSE_AND_GLOSSY, KIND_PLANE,
                                             REFLECTION_AND_REFRACTION, Camera,
                                             RenderOptions, Scene)
 from raytracer_tpu_torch.ops import geometry as geom
+from raytracer_tpu_torch.ops.dgather import permute_take
 from raytracer_tpu_torch.ops.safemath import clamp01, normalize
 from raytracer_tpu_torch.ops.shade import shade_diffuse
 from raytracer_tpu_torch.ops.trace import nearest_hit, surface_at
@@ -45,9 +55,59 @@ from raytracer_tpu_torch.ops.trace import nearest_hit, surface_at
 _REMAT_POLICIES = ("plan", "full")
 
 
-def _fold(x, n0):
-    """[k·n0, C] buffer → per-pixel [n0, C] by summing the k child slots."""
+def use_compact(scene: Scene, opts: RenderOptions) -> bool:
+    """Does this (scene, opts) pair run compacted wavefronts? Glass scenes
+    compact to stop the per-bounce buffer doubling; fractional caps (< 1)
+    also compact single-child (mirror) wavefronts."""
+    return opts.compact_cap is not None and (scene.has_glass
+                                             or opts.compact_cap < 1)
+
+
+def _cap_lanes(cap: float, n0: int) -> int:
+    """Lane budget of a compacted wavefront of `n0` primary rays (8-lane
+    aligned)."""
+    return max(8, _ceil_to(int(round(cap * n0)), 8))
+
+
+def _fold(x, n0, slot=None, n_slots=0):
+    """[w, C] buffer → per-pixel [n0, C] by summing each pixel's child
+    slots. Uncompacted (`slot` None) lane i is slot i of a [k·n0] buffer;
+    compacted lane i sits at slot `slot[i]` of the `n_slots`-wide
+    uncompacted buffer, and is written back there first (slots are unique:
+    no atomics, the same sum in the same order)."""
+    if slot is not None:
+        x = x.new_zeros((n_slots, x.shape[-1])).index_put((slot,), x)
     return x.reshape(-1, n0, x.shape[-1]).sum(dim=0)
+
+
+def partition(alive, cap: int):
+    """The stable alive-first permutation of a wavefront, cut to `cap`
+    lanes: two prefix sums and one scatter of lane ids to unique slots, no
+    sort and no host sync → (order [cap], pos [n], kept [cap], dropped):
+    lane order[j] goes to slot j, lane i to slot pos[i]; kept marks slots
+    that hold an alive lane; dropped (0-dim f32) counts alive lanes past the
+    cap."""
+    n = alive.shape[0]
+    ai = alive.to(torch.int32)
+    c_alive = torch.cumsum(ai, 0, dtype=torch.int32)
+    n_alive = c_alive[-1]
+    pos = torch.where(alive, c_alive - 1,
+                      n_alive + torch.cumsum(1 - ai, 0, dtype=torch.int32) - 1)
+    order = torch.empty_like(pos).index_put_(
+        (pos,), torch.arange(n, dtype=torch.int32, device=alive.device))
+    order = order[:cap]
+    kept = torch.arange(cap, device=alive.device) < n_alive
+    dropped = torch.clamp(n_alive - cap, min=0).to(torch.float32)
+    return order, pos, kept, dropped
+
+
+def _compact(state, slot, cap: int):
+    """Keep the first `cap` lanes of the alive-first partition → (state',
+    slot', dropped)."""
+    o, d, thr, alive = state
+    order, pos, kept, dropped = partition(alive, cap)
+    return ((permute_take(o, order, pos), permute_take(d, order, pos),
+             permute_take(thr, order, pos), kept), slot[order], dropped)
 
 
 def _plan_win(scene: Scene, hit, alive):
@@ -65,7 +125,7 @@ def _plan_win(scene: Scene, hit, alive):
 
 def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
                 is_last: bool, count_rays: bool = False, tracer=None,
-                plan_out: list | None = None):
+                plan_out: list | None = None, slot=None, n_slots: int = 0):
     """One wavefront bounce: trace + shade + spawn children.
 
     `state` = (o, d, thr, alive) ray buffers on one device. Returns (terms,
@@ -74,6 +134,10 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     child wavefront (None when `is_last`); `traced_inc` counts live trace
     lanes (a 0-dim f32 tensor). `plan_out` (a list) receives this bounce's
     plan node: (winner plane, occlusion bitmask plane), each [len(o)] i32.
+
+    Compacted wavefronts pass `slot` [len(o)] i32, each lane's slot in this
+    bounce's uncompacted buffer of `n_slots` lanes: terms fold by slot, and
+    `new_state` gains a 5th element, the children's slots.
     """
     o, d, thr, alive = state
     bg = torch.tensor(opts.background, dtype=torch.float32, device=o.device)
@@ -99,7 +163,8 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
 
     # leaves: miss → background
     miss = alive & ~surf.valid
-    terms = [_fold(torch.where(miss[:, None], thr * bg, 0.0), n0)]
+    terms = [_fold(torch.where(miss[:, None], thr * bg, 0.0), n0, slot,
+                   n_slots)]
 
     # leaves: diffuse hit → local Phong (branchless; masked after)
     is_diff = valid & (surf.mtype == DIFFUSE_AND_GLOSSY)
@@ -108,7 +173,8 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
                           occ_out=occ_out)
     if plan_out is not None:
         plan_out.append((win, occ_out[0]))
-    terms.append(_fold(torch.where(is_diff[:, None], thr * local, 0.0), n0))
+    terms.append(_fold(torch.where(is_diff[:, None], thr * local, 0.0), n0,
+                       slot, n_slots))
     if count_rays:
         traced_inc = traced_inc + is_diff.to(torch.float32).sum() \
             * scene.lights.count
@@ -125,14 +191,15 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
         # (kr==1 exactly on TIR, so glass always totals 1·bg)
         w = torch.where(is_mirror, kr,
                         is_glass.to(torch.float32))
-        terms.append(_fold(thr * w[:, None] * bg, n0))
+        terms.append(_fold(thr * w[:, None] * bg, n0, slot, n_slots))
         return terms, None, traced_inc
 
     return _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc,
-                  opts)
+                  opts, slot, n_slots)
 
 
-def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts):
+def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts,
+           slot, n_slots):
     o, d, thr, alive = state
     rdir = normalize(geom.reflect(d, surf.n))
     rorig = geom.spawn_origin(surf.p, surf.n, rdir, opts.bias)
@@ -145,8 +212,12 @@ def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts):
         thr_t = torch.where(alive_t[:, None], thr * (1.0 - kr[:, None]), 0.0)
         new_state = (torch.cat([rorig, torig]), torch.cat([rdir, tdir]),
                      torch.cat([thr_r, thr_t]), torch.cat([spec, alive_t]))
+        if slot is not None:  # child c of slot s: slot s + c·n_slots
+            new_state += (torch.cat([slot, slot + n_slots]),)
     else:
         new_state = (rorig, rdir, thr_r, spec)
+        if slot is not None:
+            new_state += (slot,)
     return terms, new_state, traced_inc
 
 
@@ -161,7 +232,14 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
     where rays_traced counts every live trace lane (primary + secondary +
     shadow) — the rays/s numerator. `record_plan=True` appends the plan,
     one plane per bounce in lane order: (radiance, traced, wins, occs). On a
-    glass scene bounce b's planes are 2^b·N wide (the doubled buffer).
+    glass scene bounce b's planes are 2^b·N wide (the doubled buffer), or
+    as wide as the compacted wavefront. With compaction on
+    (`use_compact`), `dropped` (0-dim f32: alive lanes lost to the cap)
+    comes last: (radiance, traced[, wins, occs], dropped).
+
+    Only a buffer's static width decides whether a bounce compacts, so the
+    loop reads nothing back from the device. The first compaction numbers
+    the lanes by their uncompacted slots; before it slot i is lane i.
     """
     n0 = orig.shape[0]
     dev = orig.device
@@ -170,17 +248,35 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
              torch.ones((n0,), dtype=torch.bool, device=dev))
     traced = torch.zeros((), dtype=torch.float32, device=dev)
     plan = [] if record_plan else None
+    compact = use_compact(scene, opts)
+    cap = _cap_lanes(opts.compact_cap, n0) if compact else 0
+    dropped = torch.zeros((), dtype=torch.float32, device=dev)
+    slot, n_slots = None, n0
     for depth in range(opts.max_depth + 1):
         terms, state, inc = bounce_step(
             scene, state, opts, n0, is_last=depth == opts.max_depth,
-            count_rays=count_rays, tracer=tracer, plan_out=plan)
+            count_rays=count_rays, tracer=tracer, plan_out=plan, slot=slot,
+            n_slots=n_slots)
         for t in terms:
             radiance = radiance + t
         traced = traced + inc
+        if state is None:
+            break
+        if slot is not None:
+            *state, slot = state
+        if scene.has_glass:
+            n_slots *= 2
+        if compact and state[0].shape[0] > cap:
+            if slot is None:
+                slot = torch.arange(state[0].shape[0], dtype=torch.int32,
+                                    device=dev)
+            state, slot, drop = _compact(tuple(state), slot, cap)
+            dropped = dropped + drop
+        state = tuple(state)
+    out = (radiance, traced)
     if record_plan:
-        return (radiance, traced, tuple(w for w, _ in plan),
-                tuple(o for _, o in plan))
-    return radiance, traced
+        out += (tuple(w for w, _ in plan), tuple(o for _, o in plan))
+    return out + (dropped,) if compact else out
 
 
 def needs_grad(*objs) -> bool:
@@ -200,24 +296,27 @@ def needs_grad(*objs) -> bool:
 
 
 def _plan_remat_tile(scene, orig, direc, opts, count_rays, tracer):
-    """One tile under the "plan" policy → (radiance, traced): the searches
-    run once, under no_grad, recording the tile's plan; autograd sees only
-    the checkpointed shading replay of that plan. The replay's PlanTracer
-    is built inside the checkpointed function, so the backward's recompute
-    gets fresh cursors."""
+    """One tile under the "plan" policy → render_rays' (radiance, traced[,
+    dropped]): the searches run once, under no_grad, recording the tile's
+    plan; autograd sees only the checkpointed shading replay of that plan.
+    The replay's PlanTracer is built inside the checkpointed function, so
+    the backward's recompute gets fresh cursors. A compacted tile's planes
+    are in its compacted lane order; the replay recomputes the same alive
+    masks from the same values, hence the same compaction."""
     from raytracer_tpu_torch.ops.replay import PlanTracer
 
     with torch.no_grad():
-        _, traced, wins, occs = render_rays(scene, orig, direc, opts,
-                                            count_rays, tracer=tracer,
-                                            record_plan=True)
+        _, traced, wins, occs, *drop = render_rays(
+            scene, orig, direc, opts, count_rays, tracer=tracer,
+            record_plan=True)
     ns, npl = scene.spheres.count, scene.planes.count
 
     def replay(o, d):
         return render_rays(scene, o, d, opts,
                            tracer=PlanTracer(wins, occs, ns, npl))[0]
 
-    return checkpoint(replay, orig, direc, use_reentrant=False), traced
+    return (checkpoint(replay, orig, direc, use_reentrant=False), traced,
+            *drop)
 
 
 def _render_tile(scene, orig, direc, opts, count_rays, tracer, remat):
@@ -274,16 +373,22 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
 
     `record_plan=True` appends the band's plan: per bounce, the winner
     plane and the occlusion bitmask plane, each [rows·W] i32 in pixel order
-    → (img, traced, wins, occs). Glass scenes need compaction for that
-    (the buffer doubles per bounce), which is not ported: they raise.
+    → (img, traced, wins, occs). Scenes whose planes would not be per pixel
+    raise ValueError: glass (the buffer doubles per bounce) and compacted
+    wavefronts (lanes are permuted).
+
+    With compaction on (`use_compact`) → (img, traced, dropped): `dropped`
+    (0-dim f32 on `device`) counts alive lanes lost to the cap, 0 when the
+    image is exact. Several tiles are then strided (slot j of tile k is
+    pixel j·ntiles + k) so that every tile samples the whole band, and
+    `opts.tile_block` is not used.
     """
-    if opts.compact_cap is not None:
-        raise NotImplementedError("wavefront compaction (compact_cap) is not "
-                                  "ported yet (ROADMAP queue 1, item 5)")
     if record_plan and scene.has_glass:
-        raise ValueError("record_plan on a glass scene needs a compacted "
-                         "wavefront (compact_cap), which is not ported yet; "
-                         "uncompacted glass planes would not be per-pixel")
+        raise ValueError("record_plan on a glass scene: uncompacted glass "
+                         "planes would not be per pixel")
+    if record_plan and opts.compact_cap is not None:
+        raise ValueError("record_plan with compact_cap: compacted planes "
+                         "are in permuted lane order, not per pixel")
     if opts.remat_policy not in _REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {_REMAT_POLICIES}, "
                          f"got {opts.remat_policy!r}")
@@ -299,9 +404,11 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
     dirs = geom.raygen(camera.c2w, camera.fov_deg, w, h, row0=row0,
                        rows=rows)
     tile = min(opts.tile_rays, _ceil_to(n_pix, 8))
+    compact = use_compact(scene, opts)
     # block order engages only when the block matches the tile exactly;
     # otherwise flat tiles (identical images either way)
-    block = (opts.tile_block if opts.tile_block is not None and n_pix > tile
+    block = (opts.tile_block if opts.tile_block is not None and not compact
+             and n_pix > tile
              and opts.tile_block[0] * opts.tile_block[1] == tile else None)
     inv_order = None
     dummy = torch.tensor([[0.0, 0.0, -1.0]], dtype=torch.float32,
@@ -314,12 +421,17 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
         n_pad = _ceil_to(n_pix, tile)
         if n_pad != n_pix:
             dirs = torch.cat([dirs, dummy.expand(n_pad - n_pix, 3)])
+    ntiles = dirs.shape[0] // tile
+    strided = compact and ntiles > 1
+    if strided:  # tile k holds pixels k, k + ntiles, k + 2·ntiles, …
+        dirs = dirs.reshape(tile, ntiles, 3).transpose(0, 1).reshape(-1, 3)
     orig = camera.pos[None, :].expand(tile, 3)
     grad = needs_grad(scene, camera)
     remat = opts.remat_tiles and not record_plan and grad
 
     rads, wins, occs = [], [], []
     traced = torch.zeros((), dtype=torch.float32, device=device)
+    dropped = torch.zeros((), dtype=torch.float32, device=device)
     # with nothing to differentiate, autograd's per-op bookkeeping is off
     with torch.set_grad_enabled(grad):
         for s in range(0, dirs.shape[0], tile):
@@ -330,14 +442,21 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
                 wins.append(w_t)
                 occs.append(o_t)
             else:
-                rad, inc = _render_tile(scene, orig, dirs[s:s + tile], opts,
-                                        count_rays, tracer, remat)
+                rad, inc, *drop = _render_tile(
+                    scene, orig, dirs[s:s + tile], opts, count_rays, tracer,
+                    remat)
+                if compact:
+                    dropped = dropped + drop[0]
             rads.append(rad)
             traced = traced + inc
     rad = torch.cat(rads)
+    if strided:  # back to pixel order
+        rad = rad.reshape(ntiles, tile, 3).transpose(0, 1).reshape(-1, 3)
     if inv_order is not None:
         rad = rad[inv_order]  # block order → pixel order
     img = clamp01(rad[:n_pix]).reshape(rows, w, 3)
+    if compact:
+        return img, traced, dropped
     if not record_plan:
         return img, traced
 
@@ -360,7 +479,8 @@ def render_banded(scene: Scene, camera: Camera, opts: RenderOptions, *,
 
     Same output as `render` (bands are slices of the full-frame projection).
     On the card a band bounds nothing that the tiles do not already bound,
-    so the default is one band of the whole frame.
+    so the default is one band of the whole frame. With compaction on →
+    (img, traced, dropped), `dropped` summed over the bands.
     """
     band_rows = opts.height if band_rows is None else min(band_rows,
                                                           opts.height)
@@ -368,15 +488,16 @@ def render_banded(scene: Scene, camera: Camera, opts: RenderOptions, *,
     scene = scene.to(device)
     camera = camera.to(device)
     imgs = []
-    traced = torch.zeros((), dtype=torch.float32, device=device)
+    sums = None
     for r0 in range(0, opts.height, band_rows):
         rb = min(band_rows, opts.height - r0)
-        img, inc = render(scene, camera, opts, device=device,
-                          count_rays=count_rays, tracer=tracer, row0=r0,
-                          rows=rb)
+        img, *counts = render(scene, camera, opts, device=device,
+                              count_rays=count_rays, tracer=tracer, row0=r0,
+                              rows=rb)
         imgs.append(img)
-        traced = traced + inc
-    return torch.cat(imgs), traced
+        sums = counts if sums is None else [a + b for a, b in zip(sums,
+                                                                  counts)]
+    return (torch.cat(imgs), *sums)
 
 
 def render_ssaa(scene: Scene, camera: Camera, opts: RenderOptions, *,
@@ -388,7 +509,8 @@ def render_ssaa(scene: Scene, camera: Camera, opts: RenderOptions, *,
     clamped castRay results into a big framebuffer.
 
     `band_rows` is in rows of the output image; on the card a band only
-    bounds memory, so the default is one band of the whole frame.
+    bounds memory, so the default is one band of the whole frame. With
+    compaction on → (img, traced, dropped), `dropped` summed over the bands.
     """
     if factor < 1:
         raise ValueError(f"ssaa factor must be ≥ 1, got {factor}")
@@ -400,16 +522,17 @@ def render_ssaa(scene: Scene, camera: Camera, opts: RenderOptions, *,
     scene = scene.to(device)
     camera = camera.to(device)
     imgs = []
-    traced = torch.zeros((), dtype=torch.float32, device=device)
+    sums = None
     for r0 in range(0, opts.height, band_rows):
         rb = min(band_rows, opts.height - r0)
-        img, inc = render(scene, camera, hi, device=device,
-                          count_rays=count_rays, tracer=tracer,
-                          row0=r0 * factor, rows=rb * factor)
+        img, *counts = render(scene, camera, hi, device=device,
+                              count_rays=count_rays, tracer=tracer,
+                              row0=r0 * factor, rows=rb * factor)
         imgs.append(img.reshape(rb, factor, opts.width, factor, 3)
                     .mean(dim=(1, 3)))
-        traced = traced + inc
-    return torch.cat(imgs), traced
+        sums = counts if sums is None else [a + b for a, b in zip(sums,
+                                                                  counts)]
+    return (torch.cat(imgs), *sums)
 
 
 def render_image(scene: Scene, camera: Camera, opts: RenderOptions, *,

@@ -8,10 +8,8 @@ dataclasses; the tracer is built for an explicit device.
 
 import dataclasses
 
-# tracer kinds of the reference that this package does not have yet, with
-# the ROADMAP item that ports each
+# tracer kinds of the reference that this package does not have, and why
 _NOT_PORTED = {
-    "bvh": "ROADMAP queue 1, item 13 (accel/bvh.py)",
     "grid-pallas": "nothing: on this card the grid walk IS the CUDA kernel "
                    "(--tracer grid)",
 }
@@ -36,17 +34,21 @@ def load_scene_cli(config: str = "", scene_path: str = "", width: int = 0,
 
 
 def build_tracer(scene, kind: str, device):
-    """Winner-search backend for `kind` in {auto, none, grid, pallas, mat}
-    on `device`; None when the scene has no mesh (the dense search covers
+    """Winner-search backend for `kind` in {auto, none, grid, bvh, pallas,
+    mat} on `device`; None when the scene has no mesh (the dense search covers
     analytic primitives). The `fused` backend is not built here: it replaces
     the whole renderer, not the tracer (cli.cmd_render handles it)."""
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"tracer {kind!r} is not ported yet: "
                                   f"{_NOT_PORTED[kind]}")
-    if kind not in ("auto", "none", "grid", "pallas", "mat"):
+    if kind not in ("auto", "none", "grid", "bvh", "pallas", "mat"):
         raise ValueError(f"unknown tracer kind: {kind!r}")
     if not scene.meshes.count or kind == "none":
         return None
+    if kind == "bvh":
+        from raytracer_tpu_torch.accel.bvh import BVHTracer
+
+        return BVHTracer.build(scene, device)
     if kind == "pallas":
         from raytracer_tpu_torch.ops.pallas_trace import PallasTracer
 

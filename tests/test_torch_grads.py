@@ -397,3 +397,50 @@ def test_vertex_normals_torch_keeps_a_zero_sum():
                                          jnp.asarray([[0, 1, 2]])))
     np.testing.assert_allclose(n.numpy(), want)
 
+
+
+@pytest.mark.parametrize("kind", ["sphere", "plane"])
+def test_demoted_hit_keeps_gradients_finite(kind):
+    """A claimed hit whose recompute misses (a plan's knife edge) is a miss
+    in the forward, and its lane's zero cotangents meet no inf in the
+    backward. Before surface_at kept the demoted lane's t finite, a
+    sphere's normal there was inf and fresnel's dot product made the scene
+    gradients NaN (config3 1024² d4 glass); the plane case holds a plane's
+    demoted lane to the same."""
+    from raytracer_tpu_torch.core.types import KIND_PLANE, KIND_SPHERE
+    from raytracer_tpu_torch.ops import geometry as geom
+    from raytracer_tpu_torch.ops.trace import Hit, surface_at
+
+    scene = presets.PRESETS["config2"]()[0].to("cpu")
+    c = as_leaf(scene.spheres.center, "cpu")
+    pt = as_leaf(scene.planes.point, "cpu")
+    sc = scene.replace(
+        spheres=dataclasses.replace(scene.spheres, center=c),
+        planes=dataclasses.replace(scene.planes, point=pt))
+    # lane 0 hits sphere 0 / plane 0; lane 1 is claimed to but misses
+    # (a ray away from the sphere; parallel to the plane)
+    o = torch.zeros((2, 3))
+    if kind == "sphere":
+        d = torch.stack([(c[0] / c[0].norm()).detach(),
+                         -(c[0] / c[0].norm()).detach()])
+        k = KIND_SPHERE
+    else:
+        n = scene.planes.normal[0]
+        tang = scene.planes.tangent[0]
+        d = torch.stack([-n, tang])
+        o = (pt[0] + n).detach().expand(2, 3).contiguous()
+        k = KIND_PLANE
+    hit = Hit(kind=torch.full((2,), k, dtype=torch.int32),
+              idx=torch.zeros((2,), dtype=torch.int32),
+              t=torch.ones((2,)))
+    surf = surface_at(sc, o, d, hit, 1e-4)
+    assert surf.valid.tolist() == [True, False]
+    assert bool(torch.isfinite(surf.n).all() and torch.isfinite(surf.p).all()
+                and torch.isfinite(surf.albedo).all())
+    kr = geom.fresnel(d, surf.n, surf.ior)
+    loss = (torch.where(surf.valid, kr, 0.0)
+            + torch.where(surf.valid[:, None], surf.albedo, 0.0).sum(-1)
+            + torch.where(surf.valid[:, None], surf.p, 0.0).sum(-1)).sum()
+    gc, gp = torch.autograd.grad(loss, [c, pt])
+    assert bool(torch.isfinite(gc).all() and torch.isfinite(gp).all())
+    assert float(gc.abs().max() + gp.abs().max()) > 0

@@ -1,7 +1,7 @@
 """PyTorch port: the CUDA kernels (grid walk, fused Whitted forward in its
-three modes, fused train, the brute-force triangle searches) against their
-plain torch versions, and raygen's pixel coordinates on the card against the
-CPU's.
+three modes, fused train, the brute-force triangle searches, the BVH walk)
+against their plain torch versions, and raygen's pixel coordinates on the
+card against the CPU's.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the JAX package, so it also runs on a machine that has only
@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from raytracer_tpu_torch.accel.bvh import BVHTracer, bvh_walk
 from raytracer_tpu_torch.accel.grid import GridTracer, walk_init
 from raytracer_tpu_torch.models import presets
+from raytracer_tpu_torch.ops import bvh_walk as BW
 from raytracer_tpu_torch.ops import fused as F
 from raytracer_tpu_torch.ops import mat_trace as MT
 from raytracer_tpu_torch.ops import pallas_trace as PT
@@ -674,3 +676,118 @@ def test_raygen_pixel_coords_equal_cpu():
         i0, j0 = pixel_coords(w, h, row0, rows, "cpu")
         i1, j1 = pixel_coords(w, h, row0, rows, "cuda")
         assert torch.equal(i1.cpu(), i0) and torch.equal(j1.cpu(), j0)
+
+
+# --------------------------------------------------------------------------
+# the BVH walk (csrc/bvh_walk.cu) against its plain version, bit for bit
+
+def test_bvh_kernel_wrapper_rejects_cpu_tensors():
+    scene, cam, _ = presets.config4_mesh()
+    tracer = BVHTracer.build(scene, "cpu")
+    orig, dirs = _rays(cam, "cpu", 8, 4)
+    before = BW.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        BW.bvh_walk_cuda(tracer._bvh, tracer._table, orig, dirs, 1e-4)
+    assert BW.launches == before
+
+
+def test_bvh_table_packs_leaves():
+    """The kernel's table: every leaf's listed triangles once, in node
+    order, each node's first slot and count, and its lowest listed id."""
+    scene = presets.config4_mesh()[0]
+    tracer = BVHTracer.build(scene, "cpu")
+    b, table = tracer._bvh, tracer._table
+    leaf = b.leaf_tris
+    listed = leaf != b.n_tris
+    bits = table.nodes[:, [3, 7]].contiguous().view(torch.int32)
+    assert torch.equal(bits[:, 1], listed.sum(dim=1).to(torch.int32))
+    assert torch.equal(bits[:, 0], (torch.cumsum(bits[:, 1], 0)
+                                    - bits[:, 1]).to(torch.int32))
+    assert torch.equal(table.nodes[:, [0, 1, 2, 4, 5, 6]], b.aabb6)
+    assert torch.equal(table.slots[:, 9].long(), leaf[listed].long())
+    v0, e1, _ = table.soa
+    assert torch.equal(table.slots[:, 0:3], v0[leaf[listed].long()])
+    assert torch.equal(table.slots[:, 3:6], e1[leaf[listed].long()])
+    inner = ~listed.any(dim=1)
+    assert bool((table.minid[inner] == b.n_tris).all())
+    assert torch.equal(table.minid[~inner],
+                       torch.where(listed, leaf, b.n_tris)[~inner].amin(1))
+
+
+@pytest.fixture(scope="module")
+def bvh_case():
+    scene, cam, opts = presets.config4_mesh()
+    return BVHTracer.build(scene, "cuda"), *_rays(cam, "cuda"), opts
+
+
+def _bvh_both(tracer, orig, dirs, t_min, max_t=None, active=None):
+    b, table = tracer._bvh, tracer._table
+    before = BW.launches
+    got = BW.bvh_walk_cuda(b, table, orig, dirs, t_min, max_t, active)
+    assert BW.launches == before + 1
+    want = bvh_walk(b, *table.soa, orig, dirs, t_min, max_t, active)
+    torch.cuda.synchronize()
+    return [x.cpu() for x in want], [x.cpu() for x in got]
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bvh_kernel_equals_plain(bvh_case, mode, masked):
+    """Primaries and incoherent rays around the blob: hits, t and ids (of
+    hits and misses) bit-equal to the plain walk."""
+    tracer, orig, dirs, opts = bvh_case
+    rng = np.random.default_rng(13)
+    n = 20000
+    o2 = torch.from_numpy((rng.normal(size=(n, 3)) * 1.5 + np.array(
+        [0.0, 0.0, -5.0])).astype(np.float32)).to("cuda")
+    d2 = rng.normal(size=(n, 3))
+    d2 = torch.from_numpy((d2 / np.linalg.norm(d2, axis=1, keepdims=True))
+                          .astype(np.float32)).to("cuda")
+    o = torch.cat([orig, o2]).contiguous()
+    d = torch.cat([dirs, d2]).contiguous()
+    mx = torch.full_like(o[:, 0], 6.0) if mode == "occlusion" else None
+    act = _mask(o.shape[0], seed=9) if masked else None
+    (t0, i0), (t1, i1) = _bvh_both(tracer, o, d, opts.t_min, mx, act)
+    assert torch.equal(t1, t0) and torch.equal(i1, i0)
+    assert int(torch.isfinite(t0).sum()) > 1000  # scene sanity
+    if masked:
+        off = ~act.cpu()
+        assert bool(torch.isinf(t1[off]).all())
+        assert bool((i1[off] == tracer._bvh.n_tris).all())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_bvh_kernel_matches_grid_walk(bvh_case, cuda_case):
+    """The BVH and grid kernels find the same hits on the primaries (the
+    cross-backend standard)."""
+    tracer, orig, dirs, opts = bvh_case
+    grid = cuda_case[0]
+    tb, ib = BW.bvh_walk_cuda(tracer._bvh, tracer._table, orig, dirs,
+                              opts.t_min)
+    tg, ig = W.grid_walk(grid._grid, grid._table, orig, dirs, opts.t_min)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(tg)
+    assert torch.equal(fin, torch.isfinite(tb))
+    assert_walks_agree(tg[fin].cpu(), ig[fin].cpu(), tb[fin].cpu(),
+                       ib[fin].cpu())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_bvh_kernel_wrapper_rejects_bad_inputs(bvh_case):
+    tracer, orig, dirs, opts = bvh_case
+    b, table = tracer._bvh, tracer._table
+    with pytest.raises(ValueError, match="contiguous"):
+        BW.bvh_walk_cuda(b, table, orig, dirs.t().contiguous().t(),
+                         opts.t_min)
+    with pytest.raises(ValueError, match="float32"):
+        BW.bvh_walk_cuda(b, table, orig.double(), dirs, opts.t_min)
+    with pytest.raises(ValueError, match="shape"):
+        BW.bvh_walk_cuda(b, table, orig, dirs, opts.t_min,
+                         torch.full_like(orig[:-1, 0], 6.0))
+    with pytest.raises(ValueError, match="bool"):
+        BW.bvh_walk_cuda(b, table, orig, dirs, opts.t_min,
+                         active=torch.ones_like(orig[:, 0]))

@@ -81,10 +81,21 @@ def test_tile_block_order_equals_flat_tiles(mesh_case):
 
 
 def test_render_rejects_unported_compaction(mesh_case):
+    """Compaction is ported: a fractional cap compacts the mirror bounces of
+    the mesh scene to the uncompacted image bit for bit; what stays refused
+    is a plan recorded from compacted (permuted) lanes."""
     *_, pscene, pcam, popts, tracer = mesh_case
-    with pytest.raises(NotImplementedError):
-        render(pscene, pcam, dataclasses.replace(popts, compact_cap=0.5),
-               device="cpu", tracer=tracer)
+    ocap = dataclasses.replace(popts, compact_cap=0.5)
+    with pytest.raises(ValueError, match="compact_cap"):
+        render(pscene, pcam, ocap, device="cpu", tracer=tracer,
+               record_plan=True)
+    img, traced, dropped = render(pscene, pcam, ocap, device="cpu",
+                                  tracer=tracer, count_rays=True)
+    full, ftraced = render(pscene, pcam, popts, device="cpu", tracer=tracer,
+                           count_rays=True)
+    assert float(dropped) == 0.0
+    assert float(traced) == float(ftraced)
+    assert torch.equal(img, full)
 
 
 def test_cli_render(tmp_path):
