@@ -38,11 +38,13 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   frames;
 - brute-force triangle searches (K3: tri_nearest/tri_occluded, K4:
   mat_nearest/mat_occluded): kernel vs plain version on config4's 1080p ray
-  sets, the two against each other and against the grid walk kernel; the
-  config4 golden through `--tracer pallas` and `--tracer mat`; the main path
-  `cli render --config config4 --tracer pallas|mat` at 1920×1080, depth 4,
-  checking that all four kernels carried it and that each image matches the
-  grid path's frame; kernel and plain times over one frame's launches.
+  sets (K4 bit for bit, asserted), the two against each other and against
+  the grid walk kernel; the config4 golden through `--tracer pallas` and
+  `--tracer mat`; the main path `cli render --config config4 --tracer
+  pallas|mat` at 1920×1080, depth 4, checking that all four kernels carried
+  it and that each image matches the grid path's frame; kernel and plain
+  times over one frame's launches, beside the bound and the `--fmad=false`
+  instruction ceiling; K4's registers and spills from the build (no spills).
 
 - wavefront training (the walk K5 and K1's full plan as planners): the
   config4 1920×1080 d4 fwd+bwd step — `render(record_plan=True)` with the
@@ -75,6 +77,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -209,6 +212,41 @@ def bound_ms(ops: float, nbytes: float):
     """The least time the card could take → (ms, "operations" | "bytes")."""
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def instruction_rate() -> float:
+    """fp32 instructions the card runs per second: 128 lanes per SM per
+    clock at the card's maximum SM clock (nvidia-smi)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 128.0 * sms * mhz * 1e6
+
+
+def ptxas_report(log: str, key: str):
+    """(entry, registers, spill store bytes, spill load bytes) of every
+    kernel entry whose mangled name contains `key`, from `-Xptxas -v`."""
+    rows, entry, spills = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            if key in entry:
+                rows.append((entry, int(m.group(1)), *(spills or (0, 0))))
+            entry = None
+    return rows
 
 
 def compare_walks(name, ref, got, max_t=None):
@@ -939,11 +977,12 @@ def brute_search(kind, tracer, o, d, mx, act, t_min, plain=False):
         return getattr(PT, "tri_occluded" + sfx)(o, d, mx, tracer._tri,
                                                   t_min, act)
     f = MT.ray_features(o, d, tracer._center)
+    table = () if plain else (tracer._table,)
     if mx is None:
         return getattr(MT, "mat_nearest" + sfx)(f, tracer._w, t_min, MT.BT,
-                                                 act)
+                                                 act, *table)
     return getattr(MT, "mat_occluded" + sfx)(f, mx, tracer._w, t_min, MT.BT,
-                                              act)
+                                              act, *table)
 
 
 def compare_cross(name, ref, got):
@@ -1006,6 +1045,9 @@ def brute_phase(scene, cam, opts, grid_tracer, device):
                 err[kind]["nearest"] = max(err[kind]["nearest"], e)
                 same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
                 print(f"  bit-equal: {same}", flush=True)
+                # K4 sums the same terms in the same order as its plain
+                # version (csrc/mat_trace.cu): bit for bit
+                assert same or kind != "mat", f"{tag}: not bit-equal"
                 if act is not None:
                     assert bool(torch.isinf(k[0][~act]).all()), tag
                     assert bool((k[1][~act] == 0).all()), tag
@@ -1070,7 +1112,6 @@ def brute_main_path(grid_img):
     image against the grid path's frame → ({kind: (nearest launches, any-hit
     launches)}, {kind: recorded calls})."""
     import importlib
-    import re
 
     import numpy as np
     import torch
@@ -1126,33 +1167,43 @@ def brute_times(kind, calls):
 
     mod = importlib.import_module(BRUTE[kind][0])
     res = {}
+    lanes_per_s = instruction_rate()
     for mode, name in (("nearest", BRUTE[kind][1]),
                        ("occluded", BRUTE[kind][2])):
         args = calls[name + "_cuda"]
         kern, plain = getattr(mod, name + "_cuda"), getattr(mod, name + "_plain")
+        # the plain versions take the wrappers' arguments up to `active`
+        # (the mat wrappers add the packed table after it)
+        n_plain = 5 + (mode == "occluded")
         ms = cuda_ms(lambda: [kern(*a) for a in args], 3)
-        plain_ms = cuda_ms(lambda: [plain(*a) for a in args], 1,
+        plain_ms = cuda_ms(lambda: [plain(*a[:n_plain]) for a in args], 1,
                            warmup=False)
         tests = nbytes = lanes = 0
         stats = {}
-        for a in args:  # the table is the 3rd (tri) / 4th (mat) from last
-            table, act, n = a[-3 if kind == "tri" else -4], a[-1], a[0].shape[0]
+        for a in args:  # the table: 3rd (tri) / 4th (mat) plain arg from last
+            table = a[n_plain - (3 if kind == "tri" else 4)]
+            act = a[n_plain - 1]
+            n = a[0].shape[0]
             tp = table.shape[1] // (1 if kind == "tri" else 4)
             live = n if act is None else int(act.sum())
             lanes += live
             if mode == "nearest":
                 tests += live * tp
             else:
-                plain(*a, stats=stats)
+                plain(*a[:n_plain], stats=stats)
             nbytes += table.numel() * 4 + n * (
                 BRUTE_RAY_IN[kind] + BRUTE_OUT[mode] + (act is not None))
         tests = stats.get("tests", tests)
         ops = BRUTE_OPS[kind] * float(tests)
         b_ms, b_by = bound_ms(ops, nbytes)
+        # without multiply-add contraction each operation is an instruction
+        ceiling = ops / lanes_per_s * 1e3
         print(f"{name}: {len(args)} launches of one config4 1080p d4 frame, "
               f"{lanes} live lanes, {tests:.6g} ray-triangle tests: kernel "
               f"{ms:.3f} ms, plain {plain_ms:.1f} ms; {ops:.6g} ops, "
-              f"{nbytes:.6g} bytes → bound {b_ms:.4f} ms ({b_by})",
+              f"{nbytes:.6g} bytes → bound {b_ms:.4f} ms ({b_by}); "
+              f"--fmad=false instruction ceiling {ceiling:.4f} ms (one fp32 "
+              f"instruction per operation at {lanes_per_s:.6g} lanes/s)",
               flush=True)
         res[mode] = (ms, plain_ms, b_ms, b_by)
     return res
@@ -1515,7 +1566,6 @@ def trainers_main_path():
     """`cli optimize` without a flag, `--plan` (config5 128²) and
     `--preset mesh` (config6 96²), 30 steps each after a 2-step warm-up →
     full-plan launches of `--plan`."""
-    import re
 
     from raytracer_tpu_torch.ops import fused as F
 
@@ -1598,7 +1648,6 @@ def compact_phase(device):
     preset's strided tiles and at one tile per frame, compacted and not.
     → (K5 launches of the main path, the compacted frame)."""
     import dataclasses
-    import re
 
     import torch
 
@@ -2055,6 +2104,12 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(line.strip())
+    k4 = ptxas_report(build.build_log, "mat_trace_kernel")
+    for entry, regs, st, ld in k4:
+        mode = "K4b any-hit" if "ILb1E" in entry else "K4a nearest"
+        print(f"{mode} ({entry}): {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B", flush=True)
+    assert len(k4) == 2 and not any(st or ld for _, _, st, ld in k4), k4
 
     _phase("raygen on the card")
     raygen_check(device)

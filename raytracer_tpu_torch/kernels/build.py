@@ -156,8 +156,9 @@ def load_library() -> ctypes.CDLL:
             + [p, p, p])                  # t_out, i_out, stream
         lib.rt_mat_trace.restype = i
         lib.rt_mat_trace.argtypes = (
-            [p] * 4                       # feats, max_t, active, weights
-            + [i, i, i, f, i]             # n, tp, bt, t_min, occlusion
+            [p] * 6                       # feats, live, n_live, max_t,
+                                          # active, rows
+            + [i, i, i, f, i]             # n, tp, spread, t_min, occlusion
             + [p] * 4)                    # t_out, i_out, occ_out, stream
         _lib = lib
     return _lib
@@ -180,9 +181,9 @@ def check_arg(name, x, dtype, shape, device):
 def launch_search(entry, rays, max_t, active, table, sizes, t_min):
     """Launch the brute-force search kernel of C entry `entry` (rt_tri_trace
     or rt_mat_trace) on the current stream: nearest when `max_t` is None,
-    else any-hit below `max_t`. `rays` (the per-ray tensors) and `table`
-    are checked by the caller; `sizes` are the entry's int arguments after
-    the ray count. Checks `max_t` and `active`, allocates the outputs and
+    else any-hit below `max_t`. `rays` (the entry's tensors before max_t,
+    the first of them per ray) and `table` are checked by the caller;
+    `sizes` are the entry's int arguments after the ray count. Checks `max_t` and `active`, allocates the outputs and
     raises on a refused launch → (occluded bool [N] or (t [N] f32, idx [N]
     i32), whether a kernel was launched)."""
     import torch

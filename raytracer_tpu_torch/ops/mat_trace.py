@@ -13,18 +13,36 @@ centre):
     t·det =  o·n − (v0·n)
 
 so the search over N rays × T triangles is `feats [N,16] · weights [16,4·Tp]`
-(columns det|u|v|t per block of `bt` triangles) followed by MT's validity
-tests and a min-fold. The reference runs the product on the TPU's matrix
-unit; here the kernel takes, per ray and triangle, four 10-term dots in the
-order k = 0…9 on the CUDA cores in full fp32, and the plain version sums
-the same terms in the same order, so on one device the two agree bit for
-bit. The search's t reassociates MT's arithmetic (~1e-6 relative), so
+(columns det|u|v|t per block of `bt` triangles, `build_tri_weights`)
+followed by MT's validity tests and a min-fold. The reference runs the full
+product on the TPU's matrix unit. Here both versions sum only the weights'
+non-zero rows, in ascending order: det rows 0–2, u·det and v·det rows 0–5,
+t·det rows 6–8 and then row 9 as an add (feature 9 is the constant 1 of
+`ray_features`, and 1·w == w). The dropped terms are f·0: from finite
+features they change at most the sign of a zero sum, which the epilogue
+never reads, so the results are the full product's. A non-finite feature
+among f0…f9 makes the full product NaN in every quantity (each has a zero
+row), a miss; here such a ray is treated as masked: a miss, no tests.
+
+The kernel reads the weights packed per triangle (`pack_mat_table`: the
+19 non-zero coefficients and one zero, 80 bytes a row), built once per
+tracer and held in `MatTracer._table`. On the card it skips the
+reciprocal and the epilogue where they miss whatever 1/det rounds to
+(|det| ≤ eps; t·det of det's other sign or 0 when t_min ≥ 0; u·det or v·det
+below -2^-80 against det's sign); the plain version computes the whole
+epilogue, which gives the same result there (tests hold the kernel's
+prefilter to it). The kernel's reciprocal is correctly rounded, as
+the plain version's 1/det, and every product and sum is a separate fp32
+operation in the same order, so on one device the two agree bit for bit.
+The search's t reassociates MT's arithmetic (~1e-6 relative), so
 `MatTracer` finalizes: it recomputes the winner's t with
 `geometry.triangle_tuv`, the value every other tracer returns.
 
 `active` masks lanes as in `ops/pallas_trace.py`: a masked lane returns
 t = +inf, idx 0, not occluded, and costs no triangle work.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -41,6 +59,10 @@ DET_EPS = 1e-8
 INF = geom.INF
 _F = 16  # feature columns (10 used, padded as the reference pads them)
 _USED = 10
+# The non-zero weight rows of each quantity, in summation order; t·det adds
+# row 9 (against the constant feature 1) after rows 6–8.
+_ROWS = (range(0, 3), range(0, 6), range(0, 6), range(6, 9))
+_ROW = 20  # floats per packed triangle: det 3 | u 6 | v 6 | t 4 | 0
 BT = 2048  # triangles per weight block (the reference's default)
 
 # Kernel launches since the last reset: nearest (K4a) and any-hit (K4b).
@@ -97,6 +119,41 @@ def build_tri_weights(v0, e1, e2, bt: int = BT):
     return torch.from_numpy(w), torch.from_numpy(center.astype(np.float32))
 
 
+@dataclasses.dataclass(frozen=True)
+class MatTable:
+    """The kernel's packed weights (`pack_mat_table`): `rows` [Tp, 20] f32,
+    per triangle det rows 0–2 | u rows 0–5 | v rows 0–5 | t rows 6–9 | 0,
+    read as five 16-byte loads; `bt` and `source` name the weight table it
+    was packed from (its storage, version, shape and device), so a table
+    that no longer matches its weights is refused."""
+
+    rows: torch.Tensor
+    bt: int
+    source: tuple
+
+
+def _source(weights) -> tuple:
+    return (weights.data_ptr(), weights._version, tuple(weights.shape),
+            str(weights.device))
+
+
+def pack_mat_table(weights, bt: int = BT) -> MatTable:
+    """The packed table of a [16, 4·Tp] weight table, on its device: each
+    triangle's non-zero coefficients in one contiguous 80-byte row (padding
+    triangles' rows are all zero, as their columns are)."""
+    tp = _table_size(weights, bt)
+    if weights.dtype != torch.float32 or weights.shape[0] != _F:
+        raise ValueError(f"weights must be f32 [{_F}, 4·Tp], got "
+                         f"{weights.dtype} {tuple(weights.shape)}")
+    j = torch.arange(tp, device=weights.device)
+    col = 4 * bt * (j // bt) + j % bt  # the det column of triangle j
+    parts = [weights[rows.start:rows.stop + (q == 3), col + q * bt].T
+             for q, rows in enumerate(_ROWS)]
+    parts.append(weights.new_zeros((tp, 1)))
+    return MatTable(rows=torch.cat(parts, dim=1).contiguous(), bt=bt,
+                    source=_source(weights))
+
+
 def ray_features(orig, direc, center):
     """[N,3]×2 → [N,16] f32 feature rows [d, o×d, o, 1, 0…] (o recentred)."""
     o = orig - center[None, :]
@@ -107,19 +164,23 @@ def ray_features(orig, direc, center):
 
 
 @torch.no_grad()
-def mat_nearest(feats, weights, t_min, bt: int = BT, active=None):
+def mat_nearest(feats, weights, t_min, bt: int = BT, active=None,
+                table=None):
     """Nearest hit over the weight table → (t_search [N] f32, idx [N] i32;
     +inf and 0 on a miss). t_search is the search's value; `MatTracer`
-    recomputes the canonical t from idx."""
+    recomputes the canonical t from idx. `table` is the weights' packed
+    table for the kernel (packed here when None)."""
     if feats.device.type == "cpu":
         return mat_nearest_plain(feats, weights, t_min, bt, active)
     if feats.device.type != "cuda":
         raise ValueError(f"mat_nearest runs on cpu or cuda, not {feats.device}")
-    return mat_nearest_cuda(feats.contiguous(), weights, t_min, bt, active)
+    return mat_nearest_cuda(feats.contiguous(), weights, t_min, bt, active,
+                            table)
 
 
 @torch.no_grad()
-def mat_occluded(feats, max_t, weights, t_min, bt: int = BT, active=None):
+def mat_occluded(feats, max_t, weights, t_min, bt: int = BT, active=None,
+                 table=None):
     """Any hit with t in (t_min, max_t) per ray → bool [N]."""
     if feats.device.type == "cpu":
         return mat_occluded_plain(feats, max_t, weights, t_min, bt, active)
@@ -127,19 +188,22 @@ def mat_occluded(feats, max_t, weights, t_min, bt: int = BT, active=None):
         raise ValueError(f"mat_occluded runs on cpu or cuda, not "
                          f"{feats.device}")
     return mat_occluded_cuda(feats.contiguous(), max_t.contiguous(), weights,
-                             t_min, bt, active)
+                             t_min, bt, active, table)
 
 
-def mat_nearest_cuda(feats, weights, t_min, bt: int = BT, active=None):
-    """Launch the nearest kernel (K4a) on the current stream. Raises on any
-    input the kernel does not take and on a refused launch."""
-    return _launch(feats, None, weights, t_min, bt, active)
+def mat_nearest_cuda(feats, weights, t_min, bt: int = BT, active=None,
+                     table=None):
+    """Launch the nearest kernel (K4a) on the current stream over `table`,
+    the packed `weights` (packed now when None). Raises on any input the
+    kernel does not take, on a table packed from other weights, and on a
+    refused launch."""
+    return _launch(feats, None, weights, t_min, bt, active, table)
 
 
 def mat_occluded_cuda(feats, max_t, weights, t_min, bt: int = BT,
-                      active=None):
+                      active=None, table=None):
     """Launch the any-hit kernel (K4b) on the current stream."""
-    return _launch(feats, max_t, weights, t_min, bt, active)
+    return _launch(feats, max_t, weights, t_min, bt, active, table)
 
 
 def _table_size(weights, bt: int) -> int:
@@ -151,7 +215,25 @@ def _table_size(weights, bt: int) -> int:
     return ncols // 4
 
 
-def _launch(feats, max_t, weights, t_min, bt, active):
+def checked_table(weights, bt: int, table=None) -> MatTable:
+    """`table` if it is the packed form of `weights` in blocks of `bt`, as
+    the kernel takes it; a new one when None. Raises ValueError on a table
+    packed from other weights or before they changed (stale), and on rows
+    of another type, shape, device or alignment."""
+    if table is None:
+        return pack_mat_table(weights, bt)
+    if table.bt != bt or table.source != _source(weights):
+        raise ValueError("stale packed table: packed from other weights "
+                         f"(bt {table.bt}) than these (bt {bt}), or they "
+                         "changed since")
+    check_arg("table.rows", table.rows, torch.float32,
+              (_table_size(weights, bt), _ROW), weights.device)
+    if table.rows.data_ptr() % 16:
+        raise ValueError("table.rows must be 16-byte aligned")
+    return table
+
+
+def _launch(feats, max_t, weights, t_min, bt, active, table):
     global launches, occluded_launches
     n = feats.shape[0]
     dev = feats.device
@@ -163,8 +245,20 @@ def _launch(feats, max_t, weights, t_min, bt, active):
     tp = _table_size(weights, bt)
     check_arg("feats", feats, f32, (n, _F), dev)
     check_arg("weights", weights, f32, (_F, 4 * tp), dev)
-    out, launched = launch_search("rt_mat_trace", (feats,), max_t, active,
-                                  weights, (tp, bt), t_min)
+    table = checked_table(weights, bt, table)
+    live = n_live = None
+    if active is not None:  # the active rays' ids, ascending; no host sync
+        check_arg("active", active, torch.bool, (n,), dev)
+        pos = torch.cumsum(active, 0, dtype=torch.int32)
+        slot = torch.where(active, pos - 1, n).long()
+        live = torch.empty((n + 1,), dtype=torch.int32, device=dev)
+        live.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
+                                            device=dev))
+        n_live = pos[-1:] if n else None
+    spread = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out, launched = launch_search("rt_mat_trace", (feats, live, n_live),
+                                  max_t, active, table.rows, (tp, spread),
+                                  t_min)
     if launched and max_t is None:
         launches += 1
     elif launched:
@@ -172,11 +266,11 @@ def _launch(feats, max_t, weights, t_min, bt, active):
     return out
 
 
-def _quantity(f, wq):
-    """Σ_k f[:, k] · wq[k] over the used feature rows, k = 0…9 in order
-    (the kernel's order) → [m, c]."""
-    acc = f[:, 0:1] * wq[0:1]
-    for k in range(1, _USED):
+def _quantity(f, wq, rows):
+    """Σ_k f[:, k] · wq[k] over a quantity's non-zero weight rows, in
+    ascending order (the kernel's order) → [m, c]."""
+    acc = f[:, rows[0]:rows[0] + 1] * wq[rows[0]:rows[0] + 1]
+    for k in rows[1:]:
         acc = acc + f[:, k:k + 1] * wq[k:k + 1]
     return acc
 
@@ -200,7 +294,20 @@ def _candidates(f, weights, tp: int, bt: int, t_min):
             e = min(s + _TRI_CHUNK, bt)
             q = [weights[:, (4 * b + k) * bt + s:(4 * b + k) * bt + e]
                  for k in range(4)]
-            yield b * bt + s, _epilogue(*(_quantity(f, w) for w in q), t_min)
+            det, un, vn, tn = (_quantity(f, w, rows)
+                               for w, rows in zip(q, _ROWS))
+            tn = tn + q[3][9:10]  # row 9 against the constant feature 1
+            yield b * bt + s, _epilogue(det, un, vn, tn, t_min)
+
+
+def _sweeping(feats, active):
+    """The lanes that sweep: `active` ones whose features f0…f9 are all
+    finite (None: all of them). The others miss without a test, as the
+    full product's NaN makes them miss."""
+    finite = torch.isfinite(feats[:, :_USED]).all(dim=1)
+    if active is None:
+        return None if bool(finite.all()) else finite
+    return active.to(feats.device) & finite
 
 
 @torch.no_grad()
@@ -210,7 +317,7 @@ def mat_nearest_plain(feats, weights, t_min, bt: int = BT, active=None):
     tp = _table_size(weights, bt)
     best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
     best_i = torch.zeros((n,), dtype=torch.int32, device=dev)
-    for lanes in lane_chunks(n, active, _RAY_CHUNK, dev):
+    for lanes in lane_chunks(n, _sweeping(feats, active), _RAY_CHUNK, dev):
         f = feats[lanes]
         bt_, bi = best_t[lanes], best_i[lanes]
         for off, ts in _candidates(f, weights, tp, bt, t_min):
@@ -228,7 +335,7 @@ def mat_occluded_plain(feats, max_t, weights, t_min, bt: int = BT,
     n, dev = feats.shape[0], feats.device
     tp = _table_size(weights, bt)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for lanes in lane_chunks(n, active, _RAY_CHUNK, dev):
+    for lanes in lane_chunks(n, _sweeping(feats, active), _RAY_CHUNK, dev):
         f, mx = feats[lanes], max_t[lanes]
         hit, tests = occ[lanes], None
         for off, ts in _candidates(f, weights, tp, bt, t_min):
@@ -255,6 +362,7 @@ class MatTracer:
                       for a in scene.meshes.tri_soa())
         w, c = build_tri_weights(v0, e1, e2)
         self._w, self._center = w.to(self.device), c.to(self.device)
+        self._table = pack_mat_table(self._w)
         self._soa = tuple(torch.from_numpy(a).to(self.device)
                           for a in (v0, e1, e2))
 
@@ -275,7 +383,7 @@ class MatTracer:
     def nearest(self, orig, direc, t_min, tri_chunk, active=None):
         base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
         feats = ray_features(orig, direc, self._center)
-        tb, ib = mat_nearest(feats, self._w, t_min, active=active)
+        tb, ib = mat_nearest(feats, self._w, t_min, BT, active, self._table)
         tb = self._finalize(orig, direc, tb, ib, t_min)
         return trace_ops.merge_triangles(base, tb, ib)
 
@@ -284,4 +392,5 @@ class MatTracer:
         occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
                                  tri_chunk)
         feats = ray_features(orig, direc, self._center)
-        return occ | mat_occluded(feats, max_t, self._w, t_min, active=active)
+        return occ | mat_occluded(feats, max_t, self._w, t_min, BT, active,
+                                  self._table)

@@ -663,6 +663,143 @@ def test_brute_kernel_wrappers_reject_bad_inputs(brute_case):
         MT.mat_nearest_cuda(feats, mt._w, t_min, bt=3000)
 
 
+def _torch_cases():
+    """tests/torch_cases.py loaded by its path: without the conftest, a
+    `tests.` import can resolve to another package named `tests`."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_cases", os.path.join(os.path.dirname(__file__),
+                                     "torch_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mat_both(feats, w, bt, t_min, max_t=None, active=None, table=None):
+    """K4a (max_t None) or K4b and its plain version on the same inputs,
+    the kernel's launch counted → (kernel's, plain's)."""
+    occl = max_t is not None
+    before = MT.occluded_launches if occl else MT.launches
+    if occl:
+        got = MT.mat_occluded_cuda(feats, max_t, w, t_min, bt, active, table)
+        want = MT.mat_occluded_plain(feats, max_t, w, t_min, bt, active)
+    else:
+        got = MT.mat_nearest_cuda(feats, w, t_min, bt, active, table)
+        want = MT.mat_nearest_plain(feats, w, t_min, bt, active)
+    torch.cuda.synchronize()
+    assert (MT.occluded_launches if occl else MT.launches) == before + 1
+    return got, want
+
+
+def _assert_mat_equal(got, want, active=None):
+    """Bit-equal outputs; masked lanes miss."""
+    if isinstance(got, tuple):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(torch.isfinite(want[0]).sum()) > 100
+        if active is not None:
+            assert bool(torch.isinf(got[0][~active]).all())
+            assert not bool(got[1][~active].any())
+    else:
+        assert got.dtype == torch.bool and torch.equal(got, want)
+        assert bool(want.any())
+        if active is not None:
+            assert not bool(got[~active].any())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("max_t", [None, 6.0])
+@pytest.mark.parametrize("masked", [None, 0.3, 0.97])
+@pytest.mark.parametrize("t_min", ["preset", 0.0])
+def test_mat_kernels_equal_plain(brute_case, max_t, masked, t_min):
+    """K4 bit for bit at 40,883 rays (not a multiple of a block's 384),
+    all live, with 30% of the lanes masked, and with 97% masked (the live
+    rays spread over blocks of one warp), at the preset's t_min and at 0."""
+    _, mt, orig, dirs, opts = brute_case
+    t_min = opts.t_min if t_min == "preset" else t_min
+    feats = MT.ray_features(orig, dirs, mt._center)
+    n = feats.shape[0]
+    act = None
+    if masked is not None:
+        gen = torch.Generator().manual_seed(7)
+        act = (torch.rand(n, generator=gen) > masked).to("cuda")
+    mx = None if max_t is None else torch.full((n,), max_t, device="cuda")
+    got, want = _mat_both(feats, mt._w, MT.BT, t_min, mx, act, mt._table)
+    _assert_mat_equal(got, want, act)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("max_t", [None, 6.0])
+def test_mat_kernels_equal_plain_on_a_ragged_table(brute_case, max_t):
+    """config4's blob in weight blocks of 300: 20,700 triangles (220
+    padding ones), not a multiple of the kernel's 256-triangle tile."""
+    _, mt, orig, dirs, opts = brute_case
+    w, center = MT.build_tri_weights(*(a.cpu().numpy() for a in mt._soa),
+                                     bt=300)
+    w = w.cuda()
+    assert (w.shape[1] // 4) % 256 != 0
+    feats = MT.ray_features(orig, dirs, center.cuda())
+    n = feats.shape[0]
+    act = _mask(n, seed=8)
+    mx = None if max_t is None else torch.full((n,), max_t, device="cuda")
+    got, want = _mat_both(feats, w, 300, opts.t_min, mx, act,
+                          MT.pack_mat_table(w, 300))
+    _assert_mat_equal(got, want, act)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("t_min", [1e-4, 0.0, -1.0])
+def test_mat_kernels_equal_plain_on_edge_rays(t_min):
+    """tests/torch_cases.mat_edge_case: t·det == 0, det = ±0 and |det| at
+    eps, non-finite features (misses), a table of 300 triangles (one tile
+    and 44 rows)."""
+    w, bt, feats = _torch_cases().mat_edge_case()
+    w, feats = w.cuda(), feats.cuda()
+    finite = torch.isfinite(feats[:, :10]).all(dim=1)
+    got, want = _mat_both(feats, w, bt, t_min)
+    _assert_mat_equal(got, want)
+    assert bool(torch.isinf(got[0][~finite]).all())
+    for mx in (6.0, float("inf")):
+        max_t = torch.full((feats.shape[0],), mx, device="cuda")
+        got, want = _mat_both(feats, w, bt, t_min, max_t)
+        _assert_mat_equal(got, want)
+        assert not bool(got[~finite].any())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_mat_kernel_wrappers_reject_stale_tables(brute_case):
+    _, mt, orig, dirs, opts = brute_case
+    feats = MT.ray_features(orig, dirs, mt._center)
+    w, table, t_min = mt._w, mt._table, opts.t_min
+    before = (MT.launches, MT.occluded_launches)
+    with pytest.raises(ValueError, match="stale"):
+        MT.mat_nearest_cuda(feats, w.clone(), t_min, MT.BT, None, table)
+    with pytest.raises(ValueError, match="shape"):
+        MT.mat_nearest_cuda(feats, w, t_min, MT.BT, None, dataclasses.replace(
+            table, rows=table.rows[:-1]))
+    with pytest.raises(ValueError, match="float32"):
+        MT.mat_nearest_cuda(feats, w, t_min, MT.BT, None, dataclasses.replace(
+            table, rows=table.rows.double()))
+    flat = torch.empty(table.rows.numel() + 1, device="cuda")
+    shifted = flat[1:].view(table.rows.shape)
+    shifted.copy_(table.rows)
+    with pytest.raises(ValueError, match="aligned"):
+        MT.mat_occluded_cuda(feats, torch.full_like(feats[:, 0], 6.0), w,
+                             t_min, MT.BT, None, dataclasses.replace(
+                                 table, rows=shifted))
+    w2 = w.clone()
+    t2 = MT.pack_mat_table(w2)
+    w2.mul_(1.0)  # changed in place since it was packed
+    with pytest.raises(ValueError, match="stale"):
+        MT.mat_nearest_cuda(feats, w2, t_min, MT.BT, None, t2)
+    assert (MT.launches, MT.occluded_launches) == before
+
+
 @pytest.mark.cuda
 @NEEDS_GPU
 def test_raygen_pixel_coords_equal_cpu():

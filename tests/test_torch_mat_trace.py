@@ -13,6 +13,7 @@ kernels are held against the plain version in tests/test_torch_kernels.py.
 """
 
 import contextlib
+import dataclasses
 import io
 
 import numpy as np
@@ -27,11 +28,12 @@ from raytracer_tpu_torch.accel.grid import GridTracer
 from raytracer_tpu_torch.io.image import load_ppm
 from raytracer_tpu_torch.models import presets
 from raytracer_tpu_torch.ops import mat_trace as MT
-from raytracer_tpu_torch.ops.pallas_trace import PallasTracer
+from raytracer_tpu_torch.ops.pallas_trace import PallasTracer, fold_nearest
 from raytracer_tpu_torch.renderer import render
 from raytracer_tpu_torch.utils.hostload import build_tracer
 from tests.helpers import assert_images_close
-from tests.torch_cases import assert_walks_agree, bumpy_config4, port, tt
+from tests.torch_cases import (assert_walks_agree, bumpy_config4,
+                               mat_edge_case, port, tt)
 
 torch.set_num_threads(2)
 BT = 512  # tests/test_mat_trace.py's weight block
@@ -192,3 +194,161 @@ def test_cli_render(tmp_path, kind):
     assert "config4: 32x18 depth=1" in buf.getvalue()
     img = load_ppm(out)
     assert img.shape == (18, 32, 3) and img.std() > 0.01
+
+
+# --- the zero-skipping search against the full product -----------------------
+
+
+@pytest.mark.parametrize("bt", [300, BT])
+def test_pack_mat_table_rows_are_the_nonzero_weights(case, bt):
+    soa = _soa(case[0])
+    w, _ = MT.build_tri_weights(*soa, bt=bt)
+    table = MT.pack_mat_table(w, bt)
+    tp, n_tris = w.shape[1] // 4, soa[0].shape[0]
+    assert tp > n_tris  # padding triangles at both block sizes
+    assert table.rows.dtype == torch.float32
+    assert table.rows.shape == (tp, 20) and table.rows.is_contiguous()
+    j = np.arange(tp)
+    col = 4 * bt * (j // bt) + j % bt
+    wn = w.numpy()
+    det, u, v, t = (wn[:, col + q * bt] for q in range(4))
+    # every entry left out is zero, in every column
+    assert not det[3:].any() and not u[6:].any() and not v[6:].any()
+    assert not t[:6].any() and not t[10:].any()
+    want = np.concatenate([det[:3].T, u[:6].T, v[:6].T, t[6:10].T,
+                           np.zeros((tp, 1), np.float32)], axis=1)
+    np.testing.assert_array_equal(table.rows.numpy(), want)
+    assert not table.rows[n_tris:].any()  # padding triangles
+    assert table.rows[:n_tris, :3].abs().sum(1).min() > 0  # det rows live
+
+
+def test_checked_table_refuses_stale_and_misshapen_tables(case):
+    soa = _soa(case[0])
+    w, _ = MT.build_tri_weights(*soa, bt=BT)
+    table = MT.pack_mat_table(w, BT)
+    assert MT.checked_table(w, BT, table) is table
+    assert torch.equal(MT.checked_table(w, BT).rows, table.rows)
+    with pytest.raises(ValueError, match="stale"):
+        MT.checked_table(w.clone(), BT, table)  # other weights
+    w2, _ = MT.build_tri_weights(*soa, bt=256)
+    with pytest.raises(ValueError, match="stale"):
+        MT.checked_table(w2, 256, table)  # other blocks
+    with pytest.raises(ValueError, match="shape"):
+        MT.checked_table(w, BT, dataclasses.replace(table,
+                                                    rows=table.rows[:-1]))
+    with pytest.raises(ValueError, match="float32"):
+        MT.checked_table(w, BT, dataclasses.replace(
+            table, rows=table.rows.double()))
+    w.add_(0.0)  # an in-place change of the weights makes the table stale
+    with pytest.raises(ValueError, match="stale"):
+        MT.checked_table(w, BT, table)
+
+
+def _full_search(feats, w, t_min, bt, max_t=None):
+    """The search as the full 10-term product (k = 0…9 in order, every
+    row, the zeros included), the reference's epilogue and the folds."""
+    tp = w.shape[1] // 4
+    qs = []
+    for q in range(4):
+        cols = torch.cat([w[:, (4 * b + q) * bt:(4 * b + q + 1) * bt]
+                          for b in range(tp // bt)], dim=1)
+        acc = feats[:, 0:1] * cols[0:1]
+        for k in range(1, 10):
+            acc = acc + feats[:, k:k + 1] * cols[k:k + 1]
+        qs.append(acc)
+    ts = MT._epilogue(*qs, t_min)
+    if max_t is None:
+        n = feats.shape[0]
+        return fold_nearest(ts, 0, torch.full((n,), float("inf")),
+                            torch.zeros((n,), dtype=torch.int32))
+    return (ts < max_t[:, None]).any(dim=1)
+
+
+def _case_feats(case):
+    _, _, _, _, tr, orig, dirs = case
+    return tr._w, MT.BT, MT.ray_features(tt(orig), tt(dirs), tr._center)
+
+
+@pytest.mark.parametrize("rays", ["case", "edge"])
+@pytest.mark.parametrize("t_min", [1e-4, 0.0, -1.0])
+def test_zero_skipping_search_equals_full_product(case, rays, t_min):
+    w, bt, feats = _case_feats(case) if rays == "case" else mat_edge_case()
+    t1, i1 = MT.mat_nearest_plain(feats, w, t_min, bt)
+    t0, i0 = _full_search(feats, w, t_min, bt)
+    assert torch.equal(t1, t0) and torch.equal(i1, i0)
+    assert int(torch.isfinite(t0).sum()) > 100
+    finite = torch.isfinite(feats[:, :10]).all(dim=1)
+    if rays == "edge":  # non-finite features: misses, in both
+        assert int((~finite).sum()) > 50
+        assert bool(torch.isinf(t1[~finite]).all())
+        assert not bool(i1[~finite].any())
+    for mx in (6.0, float("inf")):
+        max_t = torch.full((feats.shape[0],), mx)
+        o1 = MT.mat_occluded_plain(feats, max_t, w, t_min, bt)
+        o0 = _full_search(feats, w, t_min, bt, max_t)
+        assert torch.equal(o1, o0) and bool(o0.any())
+        assert not bool(o1[~finite].any())
+
+
+# special values of det, t·det, u·det, v·det: zeros of both signs, around
+# eps, denormal, huge, infinite, NaN, and around the kernel's 2^64 and
+# 2^-80 thresholds
+_EPS = np.float32(1e-8)
+_BIG, _TINY = np.float32(2.0 ** 64), np.float32(2.0 ** -80)
+_SUM_CUT = np.float32(1 + 2.0 ** -20)
+_UP, _DOWN = np.float32(np.inf), np.float32(0)
+_SPECIAL = np.array([0.0, _EPS, np.nextafter(_EPS, _UP), 1e-45, 1e-30,
+                     1e-3, 0.5, 1.0, 3.0, 1e30, 3e38, np.inf, np.nan, _BIG,
+                     np.nextafter(_BIG, _UP), np.nextafter(_BIG, _DOWN),
+                     _TINY, np.nextafter(_TINY, _UP),
+                     np.nextafter(_TINY, _DOWN), 2.0 ** -100, 2.0 ** -60],
+                    np.float32)
+
+
+@pytest.mark.parametrize("t_min", [1e-4, 0.0, -0.0, -1.0, float("nan")])
+def test_kernel_prefilter_drops_only_misses(t_min):
+    """csrc/mat_trace.cu takes the reciprocal and the epilogue only where
+    |det| > eps, t·det of det's sign exceeds 0 (t_min ≥ 0) or -inf (else),
+    and, where |det| ≤ 2^64, u·det and v·det of det's sign are ≥ -2^-80
+    (in any-hit mode also their sum ≤ |det|·(1 + 2^-20)). Where it skips,
+    the reference's epilogue misses, so the plain version needs no such
+    prefilter to stay equal to the kernel."""
+    s = np.concatenate([_SPECIAL, -_SPECIAL])
+    rng = np.random.default_rng(1)
+    mags = (10.0 ** rng.uniform(-12, 12, 300)).astype(np.float32)
+    uv = np.concatenate([s, mags, -mags])
+    grid = np.meshgrid(s, s, s, np.concatenate([s, uv[-40:]]),
+                       indexing="ij")
+    det, tn, un, vn = (torch.from_numpy(g.ravel()) for g in grid)
+    # and random draws of all four, signs and magnitudes mixed
+    draws = [torch.from_numpy(rng.choice(uv, 200_000)) for _ in range(4)]
+    # and u + v next to 1: v·det = (|det| - u·det)·(1 + δ), δ from ±2^-26
+    # to ±2^-18, with t·det in front
+    m = 200_000
+    dd = (rng.uniform(0.05, 20, m) * rng.choice([-1, 1], m)).astype(np.float32)
+    uu = (np.abs(dd) * rng.uniform(0, 1, m)).astype(np.float32)
+    delta = rng.choice([-1, 1], m) * 2.0 ** -rng.integers(18, 27, m)
+    vv = ((np.abs(dd) - uu) * (1 + delta)).astype(np.float32)
+    sg = np.sign(dd).astype(np.float32)
+    edge = [torch.from_numpy(a) for a in
+            (dd, sg * rng.uniform(0.1, 5, m).astype(np.float32), sg * uu,
+             sg * vv)]
+    det, tn, un, vn = (torch.cat([x, y, z]) for x, y, z in
+                       zip((det, tn, un, vn), draws, edge))
+    lim = 0.0 if t_min >= 0 else float("-inf")
+    pos = det > 0
+    tns, uns, vns = (torch.where(pos, x, -x) for x in (tn, un, vn))
+    ad = det.abs()
+    keep = (ad > _EPS) & (tns > lim) & (
+        (ad > _BIG) | ((uns >= -_TINY) & (vns >= -_TINY)))
+    # any-hit mode: also u·det + v·det > |det|·(1 + 2^-20) skips
+    keep_any = keep & ((ad > _BIG) | ~(uns + vns > ad * _SUM_CUT))
+    t = MT._epilogue(det[:, None], un[:, None], vn[:, None], tn[:, None],
+                     t_min)[:, 0]
+    for kept in (keep, keep_any):
+        assert bool(torch.isinf(t[~kept]).all())
+        assert bool((t[~kept] > 0).all())
+        assert bool((~kept).any()) and bool(kept.any())
+        if t_min == t_min:  # a NaN t_min misses everywhere
+            assert int(torch.isfinite(t[kept]).sum()) > 1000
+    assert int((keep & ~keep_any).sum()) > 1000

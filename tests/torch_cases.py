@@ -57,3 +57,45 @@ def assert_walks_agree(t0, i0, t1, i1):
     assert (fin == np.isfinite(t1)).all(), "hit/miss sets differ"
     np.testing.assert_allclose(t1[fin], t0[fin], rtol=2e-6)
     assert (i0 != i1).mean() <= 0.005, "winner ids differ beyond knife edges"
+
+
+def mat_edge_case(seed=0, n_tris=240, n_rays=3000):
+    """A mesh of small-integer triangles, a third of them in z planes with
+    n = (0, 0, 16), and rays that reach every branch of the epilogue:
+    origins on those planes (t·det == 0 exactly), directions parallel to
+    them (det = ±0) or at |det| just at, above and below eps, random rays
+    toward the mesh, and non-finite features (inf, -inf, nan in f0…f9).
+    For the linear-expansion search (`ops/mat_trace.py`) → (weights, their
+    bt, feats [n_rays, 16]), CPU tensors."""
+    from raytracer_tpu_torch.ops import mat_trace as MT
+
+    rng = np.random.default_rng(seed)
+    v0 = rng.integers(-6, 7, (n_tris, 3)).astype(np.float32)
+    e1 = rng.integers(-4, 5, (n_tris, 3)).astype(np.float32)
+    e2 = rng.integers(-4, 5, (n_tris, 3)).astype(np.float32)
+    flat = n_tris // 3
+    e1[:flat], e2[:flat] = (4, 0, 0), (0, 4, 0)
+    bt = 100  # 240 triangles: 60 padding ones
+    w, center = MT.build_tri_weights(v0, e1, e2, bt=bt)
+    pick = rng.integers(0, flat, n_rays)
+    o = v0[pick] + np.concatenate(
+        [rng.uniform(0, 4, (n_rays, 2)), np.zeros((n_rays, 1))], 1)
+    o[:, 2] += np.where(rng.random(n_rays) < 0.4, 0.0,
+                        rng.integers(-3, 4, n_rays))
+    d = rng.normal(size=(n_rays, 3))
+    dz = np.float32(1e-8) / 16  # |det| = 16·|dz| = eps exactly
+    up, down = np.nextafter(dz, np.float32(1)), np.nextafter(dz, np.float32(0))
+    special = np.array([0.0, -0.0, dz, -dz, up, -up, down, -down, 1e-9,
+                        -1e-9, 1e-7, -1e-7], np.float32)
+    par = rng.random(n_rays) < 0.5
+    d[par, 2] = special[rng.integers(0, special.size, int(par.sum()))]
+    toward = rng.random(n_rays) < 0.2  # generic rays at the mesh
+    d[toward] = v0[rng.integers(0, n_tris, int(toward.sum()))] - o[toward]
+    feats = MT.ray_features(tt(o.astype(np.float32)),
+                            tt(d.astype(np.float32)), center)
+    bad = rng.random(n_rays) < 0.05
+    cols = rng.integers(0, 10, int(bad.sum()))
+    vals = np.array([np.inf, -np.inf, np.nan], np.float32)
+    feats[torch.from_numpy(np.nonzero(bad)[0]), torch.from_numpy(cols)] = \
+        torch.from_numpy(vals[rng.integers(0, 3, cols.size)])
+    return w, bt, feats
