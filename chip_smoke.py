@@ -38,13 +38,16 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   frames;
 - brute-force triangle searches (K3: tri_nearest/tri_occluded, K4:
   mat_nearest/mat_occluded): kernel vs plain version on config4's 1080p ray
-  sets (K4 bit for bit, asserted), the two against each other and against
-  the grid walk kernel; the config4 golden through `--tracer pallas` and
-  `--tracer mat`; the main path `cli render --config config4 --tracer
-  pallas|mat` at 1920×1080, depth 4, checking that all four kernels carried
-  it and that each image matches the grid path's frame; kernel and plain
-  times over one frame's launches, beside the bound and the `--fmad=false`
-  instruction ceiling; K4's registers and spills from the build (no spills).
+  sets (K3 and K4 bit for bit, asserted), the two against each other and
+  against the grid walk kernel; the config4 golden through `--tracer
+  pallas` and `--tracer mat`; the main path `cli render --config config4
+  --tracer pallas|mat` at 1920×1080, depth 4, checking that all four
+  kernels carried it and that each image matches the grid path's frame;
+  kernel and plain times over one frame's launches, beside the bound and
+  the `--fmad=false` instruction ceiling; the shares of K3's tests that
+  pass each of its stages (past det, past u, into the reciprocal) over
+  that frame; K3's and K4's registers and spills from the build (no
+  spills).
 
 - wavefront training (the walk K5 and K1's full plan as planners): the
   config4 1920×1080 d4 fwd+bwd step — `render(record_plan=True)` with the
@@ -1045,9 +1048,9 @@ def brute_phase(scene, cam, opts, grid_tracer, device):
                 err[kind]["nearest"] = max(err[kind]["nearest"], e)
                 same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
                 print(f"  bit-equal: {same}", flush=True)
-                # K4 sums the same terms in the same order as its plain
-                # version (csrc/mat_trace.cu): bit for bit
-                assert same or kind != "mat", f"{tag}: not bit-equal"
+                # K3 and K4 compute every quantity in their plain versions'
+                # order (csrc/tri_trace.cu, csrc/mat_trace.cu): bit for bit
+                assert same, f"{tag}: not bit-equal"
                 if act is not None:
                     assert bool(torch.isinf(k[0][~act]).all()), tag
                     assert bool((k[1][~act] == 0).all()), tag
@@ -1198,6 +1201,8 @@ def brute_times(kind, calls):
         b_ms, b_by = bound_ms(ops, nbytes)
         # without multiply-add contraction each operation is an instruction
         ceiling = ops / lanes_per_s * 1e3
+        if kind == "tri":  # the same tests, counted through the stages
+            assert tri_stage_shares(name, mode, args) == tests, tests
         print(f"{name}: {len(args)} launches of one config4 1080p d4 frame, "
               f"{lanes} live lanes, {tests:.6g} ray-triangle tests: kernel "
               f"{ms:.3f} ms, plain {plain_ms:.1f} ms; {ops:.6g} ops, "
@@ -1207,6 +1212,47 @@ def brute_times(kind, calls):
               flush=True)
         res[mode] = (ms, plain_ms, b_ms, b_by)
     return res
+
+
+def tri_stage_shares(name, mode, args):
+    """The shares of K3's ray–triangle tests over a frame's recorded calls
+    that pass each of the kernel's stages (ops/pallas_trace.tri_stages):
+    |det| > eps, u's tests, and into the reciprocal and the epilogue. An
+    any-hit ray's tests are counted up to its first occluder, the work the
+    function needs (the kernel finishes the tile) → the number of tests."""
+    import torch
+
+    from raytracer_tpu_torch.ops import pallas_trace as PT
+
+    counts = torch.zeros(4, dtype=torch.float64, device=args[0][0].device)
+    for a in args:
+        (o, d, tri, t_min, act), mx = ((a, None) if mode == "nearest" else
+                                       ((*a[:2], *a[3:]), a[2]))
+        for lanes in PT.lane_chunks(o.shape[0], act, PT._RAY_CHUNK, o.device):
+            oo, dd = o[lanes], d[lanes]
+            left = None if mx is None else torch.ones_like(mx[lanes],
+                                                           dtype=torch.bool)
+            for _, v0, e1, e2 in PT._tri_chunks(tri):
+                stages = PT.tri_stages(oo, dd, v0, e1, e2, t_min,
+                                       mx is not None)
+                *masks, ts = stages
+                if mx is None:
+                    run = torch.ones_like(masks[0])
+                else:  # tests up to and with the first occluder
+                    below = ts < mx[lanes][:, None]
+                    col = torch.arange(ts.shape[1], device=ts.device)
+                    first = torch.where(below.any(dim=1),
+                                        below.to(torch.int32).argmax(dim=1),
+                                        ts.shape[1])
+                    run = left[:, None] & (col[None, :] <= first[:, None])
+                    left = left & ~below.any(dim=1)
+                counts += torch.stack([run.sum(dtype=torch.float64)] + [
+                    (m & run).sum(dtype=torch.float64) for m in masks])
+    tests, *passed = counts.tolist()
+    print(f"{name}: stages of its {tests:.6g} ray-triangle tests: past det "
+          f"{passed[0] / tests:.4%}, past u {passed[1] / tests:.4%}, into "
+          f"the reciprocal {passed[2] / tests:.4%}", flush=True)
+    return tests
 
 
 # wavefront training (config4 fwd+bwd): the replay against the grid frame,
@@ -2104,12 +2150,14 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(line.strip())
-    k4 = ptxas_report(build.build_log, "mat_trace_kernel")
-    for entry, regs, st, ld in k4:
-        mode = "K4b any-hit" if "ILb1E" in entry else "K4a nearest"
-        print(f"{mode} ({entry}): {regs} registers, spill stores {st} B, "
-              f"spill loads {ld} B", flush=True)
-    assert len(k4) == 2 and not any(st or ld for _, _, st, ld in k4), k4
+    for key, name in (("tri_trace_kernel", "K3"), ("mat_trace_kernel", "K4")):
+        rows = ptxas_report(build.build_log, key)
+        for entry, regs, st, ld in rows:
+            mode = "b any-hit" if "ILb1E" in entry else "a nearest"
+            print(f"{name}{mode} ({entry}): {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B", flush=True)
+        assert len(rows) == 2 and not any(st or ld for _, _, st, ld in rows), \
+            rows
 
     _phase("raygen on the card")
     raygen_check(device)

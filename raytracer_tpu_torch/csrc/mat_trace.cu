@@ -48,7 +48,8 @@
 //   - The block stages the packed table a tile of 256 triangles (20 KB) at
 //     a time, one cp.async.bulk per tile signalled on an mbarrier, double
 //     buffered: thread 0 starts tile i+1 while the block sweeps tile i. No
-//     per-element index arithmetic.
+//     per-element index arithmetic. The staging and the live-ray split are
+//     bulk_copy.cuh's, shared with tri_trace.cu.
 //   - A triangle's row is 5 float4 shared-memory broadcasts, each serving
 //     kRays tests.
 //   - The reciprocal and the epilogue only where the test can hit. The
@@ -78,6 +79,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr float kDetEps = 1e-8f;
@@ -98,45 +101,6 @@ constexpr int kTile = 256;                     // triangles staged per step
 constexpr int kFeat = 16;                      // feature columns of feats
 constexpr int kRow = 20;                       // floats per packed triangle
 constexpr int kRowVec = kRow / 4;
-constexpr unsigned kRowBytes = kRow * 4;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One bulk copy of `count` packed rows from `src` into `dst`, completing
-// on `bar` (which expects the bytes).
-__device__ __forceinline__ void load_tile(float4* dst, const float* src,
-                                          int count, uint64_t* bar) {
-  const uint32_t bytes = static_cast<uint32_t>(count) * kRowBytes;
-  const uint32_t b = smem_addr(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(b), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(b)
-      : "memory");
-}
 
 template <bool kOcclusion>
 __global__ void __launch_bounds__(kThreads)
@@ -149,41 +113,15 @@ mat_trace_kernel(const float* __restrict__ feats,     // [N,16]
                  int n, int tp, int spread, float t_min,
                  float* __restrict__ t_out, int* __restrict__ i_out,
                  uint8_t* __restrict__ occ_out) {
-  __shared__ __align__(128) float4 tile[2][kTile * kRowVec];
+  __shared__ __align__(128) float4 tile[2 * kTile * kRowVec];
   __shared__ __align__(8) uint64_t full[2];
   const int tid = threadIdx.x;
 
-  // The misses of the masked rays among this block's kBlockRays of N.
-  if (active != nullptr) {
-#pragma unroll
-    for (int k = 0; k < kRays; ++k) {
-      const int r = blockIdx.x * kBlockRays + k * kThreads + tid;
-      if (r < n && !active[r]) {
-        if (kOcclusion) {
-          occ_out[r] = 0;
-        } else {
-          t_out[r] = CUDART_INF_F;
-          i_out[r] = 0;
-        }
-      }
-    }
-  }
-  // This block's share of the live rays: an even split over at least
-  // `spread` blocks, in whole warps, at most kBlockRays (the grid covers N
-  // at kBlockRays a block, so the shares cover every live ray).
-  const int total = live == nullptr ? n : *n_live;
-  int per = max((total + gridDim.x - 1) / gridDim.x,
-                (total + spread - 1) / spread);
-  per = min(kBlockRays, (per + 31) & ~31);
-  const int first = blockIdx.x * per;
-  const int count = min(per, total - first);
+  write_masked_misses<kOcclusion>(active, n, kBlockRays, t_out, i_out,
+                                  occ_out);
+  int first;
+  const int count = live_share(n_live, n, spread, kBlockRays, &first);
   if (count <= 0) return;  // block-uniform, before any barrier
-  if (tid == 0) {
-    mbar_init(&full[0]);
-    mbar_init(&full[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 
   // Slot k of this thread holds the block's live ray tid + k·kThreads.
   int ray[kRays];
@@ -213,29 +151,14 @@ mat_trace_kernel(const float* __restrict__ feats,     // [N,16]
   // t·det of det's sign must exceed this for the test to be able to hit.
   const float lim = t_min >= 0.0f ? 0.0f : -CUDART_INF_F;
 
-  const int ntiles = (tp + kTile - 1) / kTile;
-  for (int i = 0; i < ntiles; ++i) {
-    bool mine = false;
+  const auto sweeping = [&] {
+    bool any = false;
 #pragma unroll
-    for (int k = 0; k < kRays; ++k) mine = mine || sweep[k];
-    // Every thread reaches this vote, sweeping or not: the barrier before
-    // tile i+1 overwrites the buffer of tile i-1, and the block-wide end
-    // of the sweep.
-    if (!__syncthreads_or(mine)) {
-      if (tid == 0 && i > 0) mbar_wait(&full[i & 1], (i >> 1) & 1);
-      break;  // tile i is in flight since step i-1: wait for it, then exit
-    }
-    if (tid == 0) {
-      if (i == 0) load_tile(tile[0], rows, min(kTile, tp), &full[0]);
-      if (i + 1 < ntiles)
-        load_tile(tile[(i + 1) & 1],
-                  rows + static_cast<size_t>(i + 1) * kTile * kRow,
-                  min(kTile, tp - (i + 1) * kTile), &full[(i + 1) & 1]);
-    }
-    mbar_wait(&full[i & 1], (i >> 1) & 1);
-    if (!mine) continue;
-    const float4* buf = tile[i & 1];
-    const int cnt = min(kTile, tp - i * kTile);
+    for (int k = 0; k < kRays; ++k) any = any || sweep[k];
+    return any;
+  };
+  sweep_tiles<kRowVec, kTile>(rows, tp, tile, full, sweeping, [&](
+      const float4* buf, int base, int cnt) {
     for (int j = 0; j < cnt; ++j) {
       // det0 det1 det2 u0 | u1 u2 u3 u4 | u5 v0 v1 v2 | v3 v4 v5 t6 |
       // t7 t8 t9 0
@@ -275,17 +198,12 @@ mat_trace_kernel(const float* __restrict__ feats,     // [N,16]
           }
         } else if (t < best[k]) {  // strict: the first index wins exact-t ties
           best[k] = t;
-          bi[k] = i * kTile + j;
+          bi[k] = base + j;
         }
       }
-      if (kOcclusion) {
-        bool any = false;
-#pragma unroll
-        for (int k = 0; k < kRays; ++k) any = any || sweep[k];
-        if (!any) break;
-      }
+      if (kOcclusion && !sweeping()) break;
     }
-  }
+  });
 #pragma unroll
   for (int k = 0; k < kRays; ++k) {
     if (ray[k] < 0) continue;

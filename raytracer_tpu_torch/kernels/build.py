@@ -144,8 +144,9 @@ def load_library() -> ctypes.CDLL:
                                           # loss_out, grad_out, stream
         lib.rt_tri_trace.restype = i
         lib.rt_tri_trace.argtypes = (
-            [p] * 5                       # orig, dir, max_t, active, tris
-            + [i, i, f, i]                # n, tp, t_min, occlusion
+            [p] * 7                       # orig, dir, live, n_live, max_t,
+                                          # active, rows
+            + [i, i, i, f, i]             # n, tp, spread, t_min, occlusion
             + [p] * 4)                    # t_out, i_out, occ_out, stream
         lib.rt_bvh_walk.restype = i
         lib.rt_bvh_walk.argtypes = (
@@ -178,14 +179,32 @@ def check_arg(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch_search(entry, rays, max_t, active, table, sizes, t_min):
+def live_rays(active):
+    """The ids of the `active` rays in ascending order and their count, on
+    the device and without a host sync → (live [N+1] i32, n_live [1] i32);
+    (None, None) when `active` is None (every ray live). Entry N of `live`
+    takes the masked rays' scatter and is never read."""
+    import torch
+
+    if active is None:
+        return None, None
+    n, dev = active.shape[0], active.device
+    pos = torch.cumsum(active, 0, dtype=torch.int32)
+    slot = torch.where(active, pos - 1, n).long()
+    live = torch.empty((n + 1,), dtype=torch.int32, device=dev)
+    live.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=dev))
+    return live, pos[-1:]
+
+
+def launch_search(entry, rays, max_t, active, table, tp, t_min):
     """Launch the brute-force search kernel of C entry `entry` (rt_tri_trace
-    or rt_mat_trace) on the current stream: nearest when `max_t` is None,
-    else any-hit below `max_t`. `rays` (the entry's tensors before max_t,
-    the first of them per ray) and `table` are checked by the caller;
-    `sizes` are the entry's int arguments after the ray count. Checks `max_t` and `active`, allocates the outputs and
-    raises on a refused launch → (occluded bool [N] or (t [N] f32, idx [N]
-    i32), whether a kernel was launched)."""
+    or rt_mat_trace) on the current stream over the live rays of `active`
+    (`live_rays`), split over at least 4 blocks per SM: nearest when `max_t`
+    is None, else any-hit below `max_t`. `rays` (the entry's tensors per
+    ray, before the live list) and the packed `table` of `tp` triangles are
+    checked by the caller. Checks `max_t` and `active`, allocates the
+    outputs and raises on a refused launch → (occluded bool [N] or (t [N]
+    f32, idx [N] i32), whether a kernel was launched)."""
     import torch
 
     n, dev = rays[0].shape[0], rays[0].device
@@ -201,10 +220,13 @@ def launch_search(entry, rays, max_t, active, table, sizes, t_min):
     result = outs[2] if occl else outs[:2]
     if n == 0:
         return result, False
+    if table.data_ptr() % 16:
+        raise ValueError("the packed table must be 16-byte aligned")
+    spread = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = getattr(load_library(), entry)(
-        *(ptr(x) for x in (*rays, max_t, active, table)), n, *sizes,
-        float(t_min), int(occl), *(ptr(x) for x in outs),
+        *(ptr(x) for x in (*rays, *live_rays(active), max_t, active, table)),
+        n, tp, spread, float(t_min), int(occl), *(ptr(x) for x in outs),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")

@@ -219,7 +219,8 @@ def checked_table(weights, bt: int, table=None) -> MatTable:
     """`table` if it is the packed form of `weights` in blocks of `bt`, as
     the kernel takes it; a new one when None. Raises ValueError on a table
     packed from other weights or before they changed (stale), and on rows
-    of another type, shape, device or alignment."""
+    of another type, shape or device (`launch_search` refuses misaligned
+    ones)."""
     if table is None:
         return pack_mat_table(weights, bt)
     if table.bt != bt or table.source != _source(weights):
@@ -228,8 +229,6 @@ def checked_table(weights, bt: int, table=None) -> MatTable:
                          "changed since")
     check_arg("table.rows", table.rows, torch.float32,
               (_table_size(weights, bt), _ROW), weights.device)
-    if table.rows.data_ptr() % 16:
-        raise ValueError("table.rows must be 16-byte aligned")
     return table
 
 
@@ -246,19 +245,8 @@ def _launch(feats, max_t, weights, t_min, bt, active, table):
     check_arg("feats", feats, f32, (n, _F), dev)
     check_arg("weights", weights, f32, (_F, 4 * tp), dev)
     table = checked_table(weights, bt, table)
-    live = n_live = None
-    if active is not None:  # the active rays' ids, ascending; no host sync
-        check_arg("active", active, torch.bool, (n,), dev)
-        pos = torch.cumsum(active, 0, dtype=torch.int32)
-        slot = torch.where(active, pos - 1, n).long()
-        live = torch.empty((n + 1,), dtype=torch.int32, device=dev)
-        live.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
-                                            device=dev))
-        n_live = pos[-1:] if n else None
-    spread = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
-    out, launched = launch_search("rt_mat_trace", (feats, live, n_live),
-                                  max_t, active, table.rows, (tp, spread),
-                                  t_min)
+    out, launched = launch_search("rt_mat_trace", (feats,), max_t, active,
+                                  table.rows, tp, t_min)
     if launched and max_t is None:
         launches += 1
     elif launched:

@@ -18,8 +18,16 @@ work. The renderer reads masked lanes' results nowhere.
 
 `tri_nearest`/`tri_occluded` dispatch on the rays' device: a CUDA tensor
 launches the kernel (or raises; there is no fallback), a CPU tensor runs the
-plain version. The kernel is built without multiply-add contraction, so its
-t equals the plain version's bit for bit on the same device.
+plain version. The kernel reads the table packed per triangle
+(`pack_tri_rows`: v0|e1|e2 in a 48-byte row, packed at each launch) and
+takes Möller–Trumbore's quantities in stages, going on only while the test
+can still hit (`tri_stages` mirrors them: |det| > eps, then u's sign and
+u ≤ 1 from u·det, then t's and v's signs before the reciprocal). Where it
+stops, the plain version's full epilogue misses too (tests hold the stages
+to it). The kernel is built without multiply-add contraction, computes
+every quantity in the plain version's order and takes a correctly rounded
+reciprocal, so its t equals the plain version's bit for bit on the same
+device.
 """
 
 import torch
@@ -28,9 +36,18 @@ from raytracer_tpu_torch.core.types import Meshes, Scene
 from raytracer_tpu_torch.kernels.build import check_arg, launch_search
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import trace as trace_ops
+from raytracer_tpu_torch.ops.safemath import cross, dot
 
 DET_EPS = 1e-8  # the kernels' |det| threshold (geometry's _DET_EPS)
 INF = geom.INF
+_ROW = 12  # floats per packed triangle: v0 | e1 | e2 | 0, 0, 0
+# The kernel's stage thresholds (csrc/tri_trace.cu): below |det| = 2^64 a
+# u·det or v·det of det's other sign and at least 2^-80 makes u or v
+# negative, and u·det (or, in any-hit mode, u·det + v·det) above
+# |det|·(1 + 2^-20) makes u (or u + v) round above 1.
+DET_BIG = 2.0 ** 64
+UV_TINY = 2.0 ** -80
+UV_CUT = 1.0 + 2.0 ** -20
 
 # Kernel launches since the last reset: nearest (K3a) and any-hit (K3b).
 # Incremented only where a kernel is launched; callers that must show the
@@ -110,6 +127,15 @@ def tri_occluded_cuda(orig, direc, max_t, tri_planar, t_min, active=None):
     return _launch(orig, direc, max_t, tri_planar, t_min, active)
 
 
+def pack_tri_rows(tri_planar) -> torch.Tensor:
+    """The kernel's packed table of a [9, Tp] planar table, on its device:
+    [Tp, 12] f32, each triangle v0|e1|e2 and three zeros in one contiguous
+    48-byte row (three 16-byte loads)."""
+    rows = tri_planar.new_zeros((tri_planar.shape[1], _ROW))
+    rows[:, :9] = tri_planar.T
+    return rows
+
+
 def _launch(orig, direc, max_t, tri_planar, t_min, active):
     global launches, occluded_launches
     n = orig.shape[0]
@@ -124,12 +150,59 @@ def _launch(orig, direc, max_t, tri_planar, t_min, active):
     check_arg("direc", direc, f32, (n, 3), dev)
     check_arg("tri_planar", tri_planar, f32, (9, tp), dev)
     out, launched = launch_search("rt_tri_trace", (orig, direc), max_t,
-                                  active, tri_planar, (tp,), t_min)
+                                  active, pack_tri_rows(tri_planar), tp,
+                                  t_min)
     if launched and max_t is None:
         launches += 1
     elif launched:
         occluded_launches += 1
     return out
+
+
+def tri_stages(orig, direc, v0, e1, e2, t_min, occlusion: bool):
+    """The kernel's stages of each ray–triangle test (csrc/tri_trace.cu),
+    mirrored in torch: [N,3] rays × [T,3] triangles → (past_det, past_u,
+    into_rcp, t), each [N, T]: `stage_masks` of Möller–Trumbore's
+    quantities, and t as the plain version computes it (+inf on a miss).
+    Every quantity is computed in the kernel's (and the plain version's)
+    order."""
+    o, d = orig[:, None, :], direc[:, None, :]
+    v0, e1, e2 = v0[None], e1[None], e2[None]
+    pv = cross(d, e2)
+    det = dot(e1, pv)
+    tv = o - v0
+    un = dot(tv, pv)
+    qv = cross(tv, e1)
+    vn = dot(d, qv)
+    tn = dot(e2, qv)
+    past_det, past_u, into_rcp = stage_masks(det, un, vn, tn, t_min,
+                                             occlusion)
+    inv = torch.where(past_det, 1.0, 0.0) / torch.where(past_det, det, 1.0)
+    u, v, t = un * inv, vn * inv, tn * inv
+    hit = (past_det & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+           & (t > t_min))
+    return past_det, past_u, into_rcp, torch.where(hit, t, INF)
+
+
+def stage_masks(det, un, vn, tn, t_min, occlusion: bool):
+    """The kernel's stage predicates on det, u·det, v·det and t·det →
+    (past_det, past_u, into_rcp): the tests with |det| > eps; of those,
+    the ones u·det leaves (|det| > 2^64, or u·det of det's sign in
+    [-2^-80, |det|·(1 + 2^-20)]); of those, the ones t·det (of det's sign
+    above 0 where t_min ≥ 0, else above -inf) and v·det (as u·det, and in
+    any-hit mode u·det + v·det at most |det|·(1 + 2^-20)) leave, which take
+    the reciprocal and the epilogue. A test outside `into_rcp` misses in
+    the epilogue (tests/test_torch_pallas_trace.py)."""
+    ad = torch.abs(det)
+    past_det = ad > DET_EPS
+    pos, small = det > 0, ~(ad > DET_BIG)
+    uns, vns, tns = (torch.where(pos, x, -x) for x in (un, vn, tn))
+    past_u = past_det & (~small | ((uns >= -UV_TINY) & ~(uns > ad * UV_CUT)))
+    v_ok = vns >= -UV_TINY
+    if occlusion:
+        v_ok = v_ok & ~(uns + vns > ad * UV_CUT)
+    lim = 0.0 if t_min >= 0 else -INF
+    return past_det, past_u, past_u & (tns > lim) & (~small | v_ok)
 
 
 def _tri_chunks(tri_planar):

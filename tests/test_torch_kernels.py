@@ -609,7 +609,9 @@ def test_brute_nearest_kernel_matches_plain(brute_case, kind, masked):
     assert mod.launches == before + 1
     t0, i0 = _brute_launch(kind, brute_case, active=act, plain=True)
     torch.cuda.synchronize()
-    assert_walks_agree(t0.cpu(), i0.cpu(), t1.cpu(), i1.cpu())
+    # every product and sum in the plain version's order, a correctly
+    # rounded reciprocal: bit for bit
+    assert torch.equal(t1, t0) and torch.equal(i1, i0)
     assert int(torch.isfinite(t0).sum()) > 1000  # scene sanity
     if masked:
         assert bool(torch.isinf(t1[~act]).all())
@@ -693,7 +695,7 @@ def _mat_both(feats, w, bt, t_min, max_t=None, active=None, table=None):
     return got, want
 
 
-def _assert_mat_equal(got, want, active=None):
+def _assert_search_equal(got, want, active=None):
     """Bit-equal outputs; masked lanes miss."""
     if isinstance(got, tuple):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -727,7 +729,7 @@ def test_mat_kernels_equal_plain(brute_case, max_t, masked, t_min):
         act = (torch.rand(n, generator=gen) > masked).to("cuda")
     mx = None if max_t is None else torch.full((n,), max_t, device="cuda")
     got, want = _mat_both(feats, mt._w, MT.BT, t_min, mx, act, mt._table)
-    _assert_mat_equal(got, want, act)
+    _assert_search_equal(got, want, act)
 
 
 @pytest.mark.cuda
@@ -747,7 +749,7 @@ def test_mat_kernels_equal_plain_on_a_ragged_table(brute_case, max_t):
     mx = None if max_t is None else torch.full((n,), max_t, device="cuda")
     got, want = _mat_both(feats, w, 300, opts.t_min, mx, act,
                           MT.pack_mat_table(w, 300))
-    _assert_mat_equal(got, want, act)
+    _assert_search_equal(got, want, act)
 
 
 @pytest.mark.cuda
@@ -761,13 +763,102 @@ def test_mat_kernels_equal_plain_on_edge_rays(t_min):
     w, feats = w.cuda(), feats.cuda()
     finite = torch.isfinite(feats[:, :10]).all(dim=1)
     got, want = _mat_both(feats, w, bt, t_min)
-    _assert_mat_equal(got, want)
+    _assert_search_equal(got, want)
     assert bool(torch.isinf(got[0][~finite]).all())
     for mx in (6.0, float("inf")):
         max_t = torch.full((feats.shape[0],), mx, device="cuda")
         got, want = _mat_both(feats, w, bt, t_min, max_t)
-        _assert_mat_equal(got, want)
+        _assert_search_equal(got, want)
         assert not bool(got[~finite].any())
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000])
+def test_live_rays_lists_the_active_ids_in_order(n):
+    """The brute-force wrappers' live list (kernels/build.live_rays): the
+    active ids ascending, their count on the device, no host sync."""
+    from raytracer_tpu_torch.kernels.build import live_rays
+
+    assert live_rays(None) == (None, None)
+    gen = torch.Generator().manual_seed(n)
+    act = torch.rand(n, generator=gen) > 0.6
+    live, n_live = live_rays(act)
+    ids = torch.nonzero(act).squeeze(1)
+    assert live.dtype == torch.int32 and live.shape == (n + 1,)
+    assert n_live.dtype == torch.int32 and n_live.shape == (min(n, 1),)
+    if n:
+        assert int(n_live) == ids.numel()
+    assert torch.equal(live[:ids.numel()].long(), ids)
+
+
+def _tri_both(orig, dirs, tri, t_min, max_t=None, active=None):
+    """K3a (max_t None) or K3b and its plain version on the same inputs,
+    the kernel's launch counted → (kernel's, plain's)."""
+    occl = max_t is not None
+    before = PT.occluded_launches if occl else PT.launches
+    if occl:
+        got = PT.tri_occluded_cuda(orig, dirs, max_t, tri, t_min, active)
+        want = PT.tri_occluded_plain(orig, dirs, max_t, tri, t_min, active)
+    else:
+        got = PT.tri_nearest_cuda(orig, dirs, tri, t_min, active)
+        want = PT.tri_nearest_plain(orig, dirs, tri, t_min, active)
+    torch.cuda.synchronize()
+    assert (PT.occluded_launches if occl else PT.launches) == before + 1
+    return got, want
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("max_t", [None, 6.0])
+@pytest.mark.parametrize("masked", [None, 0.3, 0.97])
+@pytest.mark.parametrize("t_min", ["preset", 0.0, -1.0])
+def test_tri_kernels_equal_plain(brute_case, max_t, masked, t_min):
+    """K3 bit for bit at 40,883 rays (not a multiple of a block's 384),
+    all live, with 30% of the lanes masked, and with 97% masked (the live
+    rays spread over blocks of one warp), at the preset's t_min, at 0 and
+    at -1 (t·det's stage then drops only NaN and -inf)."""
+    pt, _, orig, dirs, opts = brute_case
+    t_min = opts.t_min if t_min == "preset" else t_min
+    n = orig.shape[0]
+    act = None
+    if masked is not None:
+        gen = torch.Generator().manual_seed(7)
+        act = (torch.rand(n, generator=gen) > masked).to("cuda")
+    mx = None if max_t is None else torch.full((n,), max_t, device="cuda")
+    got, want = _tri_both(orig, dirs, pt._tri, t_min, mx, act)
+    _assert_search_equal(got, want, act)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("max_t", [None, 6.0])
+def test_tri_kernels_equal_plain_on_a_ragged_table(brute_case, max_t):
+    """config4's blob packed in blocks of 300: 20,700 triangles (220
+    padding ones), not a multiple of the kernel's 256-triangle tile."""
+    pt, _, orig, dirs, opts = brute_case
+    tri = PT.pack_tris(pt._tri[0:3].T, pt._tri[3:6].T, pt._tri[6:9].T,
+                       bt=300)
+    assert tri.shape[1] == 20_700
+    n = orig.shape[0]
+    act = _mask(n, seed=8)
+    mx = None if max_t is None else torch.full((n,), max_t, device="cuda")
+    got, want = _tri_both(orig, dirs, tri, opts.t_min, mx, act)
+    _assert_search_equal(got, want, act)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("t_min", [1e-4, 0.0, -1.0])
+def test_tri_kernels_equal_plain_on_edge_rays(t_min):
+    """tests/torch_cases.tri_edge_case: t·det == 0, det = ±0 and |det| at
+    eps, non-finite origins and directions, a table of 300 triangles (one
+    tile and 44 rows)."""
+    orig, dirs, tri = (x.cuda() for x in _torch_cases().tri_edge_case())
+    got, want = _tri_both(orig, dirs, tri, t_min)
+    _assert_search_equal(got, want)
+    for mx in (6.0, float("inf")):
+        max_t = torch.full((orig.shape[0],), mx, device="cuda")
+        got, want = _tri_both(orig, dirs, tri, t_min, max_t)
+        _assert_search_equal(got, want)
 
 
 @pytest.mark.cuda

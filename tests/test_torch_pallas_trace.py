@@ -18,10 +18,12 @@ from raytracer_tpu.ops import geometry as rgeom
 from raytracer_tpu.ops import pallas_trace as RPT
 from raytracer_tpu.renderer import render as ref_render
 from raytracer_tpu_torch.accel.grid import GridTracer
+from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import pallas_trace as PT
 from raytracer_tpu_torch.renderer import render
 from tests.helpers import assert_images_close
-from tests.torch_cases import assert_walks_agree, bumpy_config4, port, tt
+from tests.torch_cases import (assert_walks_agree, bumpy_config4, port,
+                               tri_edge_case, tt)
 
 torch.set_num_threads(2)
 T_MIN = 1e-4
@@ -148,3 +150,124 @@ def test_render_matches_grid_and_reference(mesh_case):
     want = np.asarray(ref_render(scene, cam, opts)[0])  # dense search
     assert_images_close(img.numpy(), want, tol=1e-4, max_bad_frac=0.004,
                         name="pallas vs reference")
+
+
+# --- the kernel's packed rows and its staged tests ---------------------------
+
+
+def test_pack_tri_rows_are_the_planar_table(tri_soa):
+    tri = PT.pack_tris(*(torch.from_numpy(a) for a in tri_soa), bt=300)
+    rows = PT.pack_tri_rows(tri)
+    assert rows.dtype == torch.float32 and rows.is_contiguous()
+    assert rows.shape == (tri.shape[1], 12)
+    assert torch.equal(rows[:, :9], tri.T) and not bool(rows[:, 9:].any())
+
+
+# special values of det, t·det, u·det, v·det: zeros of both signs, around
+# eps, denormal, huge, infinite, NaN, and around the kernel's 2^64 and
+# 2^-80 thresholds
+_EPS = np.float32(1e-8)
+_BIG, _TINY = np.float32(2.0 ** 64), np.float32(2.0 ** -80)
+_UP, _DOWN = np.float32(np.inf), np.float32(0)
+_SPECIAL = np.array([0.0, _EPS, np.nextafter(_EPS, _UP), 1e-45, 1e-30,
+                     1e-3, 0.5, 1.0, 3.0, 1e30, 3e38, np.inf, np.nan, _BIG,
+                     np.nextafter(_BIG, _UP), np.nextafter(_BIG, _DOWN),
+                     _TINY, np.nextafter(_TINY, _UP),
+                     np.nextafter(_TINY, _DOWN), 2.0 ** -100, 2.0 ** -60],
+                    np.float32)
+
+
+def _quantities():
+    """(det, t·det, u·det, v·det) over the special values, random draws,
+    and u or u + v next to 1 (u·det = |det|·(1 + δ), or v·det = (|det| -
+    u·det)·(1 + δ), δ from ±2^-26 to ±2^-18), with det's sign applied."""
+    s = np.concatenate([_SPECIAL, -_SPECIAL])
+    rng = np.random.default_rng(1)
+    mags = (10.0 ** rng.uniform(-12, 12, 300)).astype(np.float32)
+    uv = np.concatenate([s, mags, -mags])
+    grid = np.meshgrid(s, s, s, np.concatenate([s, uv[-40:]]),
+                       indexing="ij")
+    parts = [[torch.from_numpy(g.ravel()) for g in grid],
+             [torch.from_numpy(rng.choice(uv, 200_000)) for _ in range(4)]]
+    m = 200_000
+    for which in ("u", "u+v"):
+        dd = (rng.uniform(0.05, 20, m) * rng.choice([-1, 1], m)).astype(
+            np.float32)
+        delta = rng.choice([-1, 1], m) * 2.0 ** -rng.integers(18, 27, m)
+        if which == "u":
+            uu = (np.abs(dd) * (1 + delta)).astype(np.float32)
+            vv = np.zeros(m, np.float32)
+        else:
+            uu = (np.abs(dd) * rng.uniform(0, 1, m)).astype(np.float32)
+            vv = ((np.abs(dd) - uu) * (1 + delta)).astype(np.float32)
+        sg = np.sign(dd).astype(np.float32)
+        parts.append([torch.from_numpy(a) for a in (
+            dd, sg * rng.uniform(0.1, 5, m).astype(np.float32), sg * uu,
+            sg * vv)])
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+# each threshold of the stages, weakened: where it applies, a test that
+# hits is then skipped
+_WEAKER = {"DET_EPS": 2e-8, "UV_TINY": 2.0 ** -110, "DET_BIG": float("inf"),
+           "UV_CUT": 1.0}
+
+
+@pytest.mark.parametrize("t_min", [1e-4, 0.0, -0.0, -1.0, float("nan")])
+def test_kernel_stages_drop_only_misses(t_min, monkeypatch):
+    """csrc/tri_trace.cu goes on with a test only while it can hit: |det|
+    > eps; then, where |det| ≤ 2^64, u·det of det's sign in [-2^-80,
+    |det|·(1 + 2^-20)]; then t·det of det's sign above 0 (t_min ≥ 0) or
+    -inf (else) and v·det ≥ -2^-80 (in any-hit mode also u·det + v·det ≤
+    |det|·(1 + 2^-20)). Where it stops, the reference's epilogue misses, so
+    the plain version needs no such stages to stay equal to the kernel;
+    and each threshold is sharp enough that a weaker one drops a hit."""
+    from raytracer_tpu_torch.ops.mat_trace import _epilogue
+
+    det, tn, un, vn = _quantities()
+    t = _epilogue(det[:, None], un[:, None], vn[:, None], tn[:, None],
+                  t_min)[:, 0]
+    hit = torch.isfinite(t)
+    tns = torch.where(det > 0, tn, -tn)
+    masks = {}
+    for occl in (False, True):
+        past_det, past_u, kept = PT.stage_masks(det, un, vn, tn, t_min, occl)
+        masks[occl] = kept
+        assert bool((kept <= past_u).all())
+        assert bool((past_u <= past_det).all())
+        assert bool(torch.isinf(t[~kept]).all())
+        assert bool((t[~kept] > 0).all())
+        assert bool((~kept).any()) and bool(kept.any())
+        if t_min == t_min:  # a NaN t_min misses everywhere
+            assert int(hit[kept].sum()) > 1000
+            for name, weaker in _WEAKER.items():
+                with monkeypatch.context() as m:
+                    m.setattr(PT, name, weaker)
+                    weak = PT.stage_masks(det, un, vn, tn, t_min, occl)[2]
+                assert bool((hit & ~weak).any()), name
+    assert int((masks[False] & ~masks[True]).sum()) > 1000
+    # t's stage is sharp: hits with t·det of det's sign at the smallest
+    # denormal (t_min ≤ 0), and below 0 (t_min < 0)
+    if t_min <= 0:
+        assert bool((hit & (tns > 0) & (tns <= 1e-44)).any())
+    if t_min < 0:
+        assert bool((hit & (tns < 0)).any())
+
+
+@pytest.mark.parametrize("t_min", [1e-4, 0.0, -1.0])
+def test_kernel_stages_on_edge_rays(t_min):
+    """`tri_stages` on tests/torch_cases.tri_edge_case (t·det == 0, det =
+    ±0 and |det| at eps, non-finite rays): its t is the plain version's bit
+    for bit, and every test it stops misses."""
+    orig, dirs, tri = tri_edge_case()
+    v0, e1, e2 = tri[0:3].T, tri[3:6].T, tri[6:9].T
+    want, _, _ = geom.triangle_hits(orig, dirs, v0, e1, e2, t_min)
+    assert int(torch.isfinite(want).sum()) > 1000
+    for occl in (False, True):
+        past_det, past_u, kept, t = PT.tri_stages(orig, dirs, v0, e1, e2,
+                                                  t_min, occl)
+        assert torch.equal(t, want)
+        assert bool(torch.isinf(want[~kept]).all())
+        # every stage drops tests here
+        assert bool((~past_det).any()) and bool((past_det & ~past_u).any())
+        assert bool((past_u & ~kept).any())

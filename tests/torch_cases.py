@@ -99,3 +99,44 @@ def mat_edge_case(seed=0, n_tris=240, n_rays=3000):
     feats[torch.from_numpy(np.nonzero(bad)[0]), torch.from_numpy(cols)] = \
         torch.from_numpy(vals[rng.integers(0, 3, cols.size)])
     return w, bt, feats
+
+
+def tri_edge_case(seed=0, n_tris=240, n_rays=3000):
+    """Small-integer triangles, a third of them in z planes with e1 = (4,
+    0, 0), e2 = (0, 4, 0) (det = -16·dz exactly), and rays that reach
+    every stage of the brute-force search (`ops/pallas_trace.py`): origins
+    on those planes (t·det == 0 exactly), directions parallel to them (det
+    = ±0) or with |det| just at, above and below eps, random rays toward
+    the mesh, and non-finite origins and directions (inf, -inf, nan in one
+    component) → (orig [n_rays, 3], dirs [n_rays, 3], the [9, 300] planar
+    table of `pack_tris(..., bt=100)`: 60 padding triangles), CPU
+    tensors."""
+    from raytracer_tpu_torch.ops import pallas_trace as PT
+
+    rng = np.random.default_rng(seed)
+    v0 = rng.integers(-6, 7, (n_tris, 3)).astype(np.float32)
+    e1 = rng.integers(-4, 5, (n_tris, 3)).astype(np.float32)
+    e2 = rng.integers(-4, 5, (n_tris, 3)).astype(np.float32)
+    flat = n_tris // 3
+    e1[:flat], e2[:flat] = (4, 0, 0), (0, 4, 0)
+    pick = rng.integers(0, flat, n_rays)
+    o = v0[pick] + np.concatenate(
+        [rng.uniform(0, 4, (n_rays, 2)), np.zeros((n_rays, 1))], 1)
+    o[:, 2] += np.where(rng.random(n_rays) < 0.4, 0.0,
+                        rng.integers(-3, 4, n_rays))
+    d = rng.normal(size=(n_rays, 3))
+    dz = np.float32(1e-8) / 16  # |det| = 16·|dz| = eps exactly
+    up, down = np.nextafter(dz, np.float32(1)), np.nextafter(dz, np.float32(0))
+    special = np.array([0.0, -0.0, dz, -dz, up, -up, down, -down, 1e-9,
+                        -1e-9, 1e-7, -1e-7], np.float32)
+    par = rng.random(n_rays) < 0.5
+    d[par, 2] = special[rng.integers(0, special.size, int(par.sum()))]
+    toward = rng.random(n_rays) < 0.2  # generic rays at the mesh
+    d[toward] = v0[rng.integers(0, n_tris, int(toward.sum()))] - o[toward]
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    vals = np.array([np.inf, -np.inf, np.nan], np.float32)
+    for x in (o, d):
+        bad = np.nonzero(rng.random(n_rays) < 0.03)[0]
+        x[bad, rng.integers(0, 3, bad.size)] = vals[rng.integers(0, 3,
+                                                                bad.size)]
+    return tt(o), tt(d), PT.pack_tris(v0, e1, e2, bt=100)
