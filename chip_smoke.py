@@ -63,11 +63,25 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   1080p d2, config3 256² d4 glass); the main paths `cli optimize` without
   a flag, `--plan` and `--preset mesh` (30 steps each).
 
+- multi-device (`raytracer_tpu_torch/parallel/`), at world size = the card
+  count, one rank per card over NCCL (a one-rank group in this process at
+  one card, else one spawned process per card): `render_sharded` of config4
+  1920×1080 d4 with the replicated grid tracer (tiles = world size; image
+  and ray count equal to the single-device frame bit for bit, K5 launched)
+  and with per-shard BVHs (prims = world size; against the single-device
+  `--tracer bvh` frame: differing pixels counted, the golden standard
+  held; the BVH walk launched), each timed against the single-device
+  frame in turns; `plan_value_and_grad_sharded` (K1's live plan and K2 on
+  each rank's band) at config2 1080p d2 and config3 1024² d4 against
+  `plan_value_and_grad`; `make_loss_and_grad` at config2 1080p d2,
+  overlapped against the plain backward and against the single-device
+  autograd loss, both step times.
+
 Before the kernels, raygen's pixel coordinates at 1920×1080 on the card are
 held to the CPU's bit for bit.
 
 A JSON line lists each kernel's launches on its main paths (per path under
-"main_paths" for K5 and K1), error, times and
+"main_paths" for K5, K1, K2 and the BVH walk), error, times and
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
 or bytes over 3.35 TB/s, whichever is larger, for the work of all the
 frames a kernel's times cover); K1 has one entry per mode. Any failure
@@ -2121,6 +2135,302 @@ def exact_grid_phase(scene, cam, opts, box, box_img, device):
     return k5
 
 
+MD_FRAMES = 5       # timed frames per side, in turns, after a warm-up
+MD_STEPS = 3        # timed training steps (CUDA events) after a warm-up
+MD_REDUCES = 20     # timed all_reduces of the fused step's floats
+MD_TIMEOUT_S = 600  # the spawned ranks (more than one card)
+# the fused step's sharded vs single-device standard
+# (tests/test_fused_vjp.py::test_kernel_vg_sharded_matches_single_device)
+MD_LOSS_RTOL, MD_TABLE_TOL = 1e-5, 1e-4
+# overlap vs the plain backward (tests/test_overlap.py); vs the single-device
+# autograd loss
+OV_LOSS_RTOL, OV_GRAD_RTOL, OV_GRAD_ATOL, OV_SINGLE_RTOL = 1e-6, 1e-4, 1e-7, \
+    1e-5
+# kernels of the multi-device path → their launch counters
+MD_KERNELS = {"grid_walk": ("raytracer_tpu_torch.ops.walk", "launches"),
+              "bvh_walk": ("raytracer_tpu_torch.ops.bvh_walk", "launches"),
+              "fused_whitted_live_plan": ("raytracer_tpu_torch.ops.fused",
+                                          "live_plan_launches"),
+              "fused_train": ("raytracer_tpu_torch.ops.fused",
+                              "train_launches")}
+
+
+def md_counts(reset: bool = False) -> dict:
+    """The multi-device path's launch counts (set to 0 first with
+    `reset`)."""
+    import importlib
+
+    out = {}
+    for name, (mod, attr) in MD_KERNELS.items():
+        m = importlib.import_module(mod)
+        if reset:
+            setattr(m, attr, 0)
+        out[name] = getattr(m, attr)
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def in_turns(fns, n=MD_FRAMES):
+    """Host seconds of `n` runs of each of `fns`, in turns, each run ended by
+    a synchronize, after one warm-up each → [(median, all)] per fn."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(n):
+        for fn, ts in zip(fns, times):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+    return [(sorted(ts)[n // 2], ts) for ts in times]
+
+
+def md_launched(say, path: str, kernels, launches: dict) -> dict:
+    """The counts since the last reset of `kernels` on this rank; each must
+    have launched."""
+    counts = md_counts()
+    got = {k: counts[k] for k in kernels}
+    say(f"{path}: launches on this rank {got}")
+    for k, n in got.items():
+        assert n > 0, f"{path}: {k} was never launched"
+        launches.setdefault(k, {})[path] = n
+    return got
+
+
+def multidevice_rank(rank: int, world: int, port: int, out_path=None):
+    """One rank of the multi-device phase, on cuda:<rank>, in an NCCL group
+    of `world` ranks → its launches per kernel and path, errors and times
+    (written as JSON to `out_path` when given). Rank 0 prints."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel.mesh import (init_distributed,
+                                                   make_rt_mesh)
+    from raytracer_tpu_torch.parallel.overlap import (float_partition,
+                                                      make_loss_and_grad)
+    from raytracer_tpu_torch.parallel.shard import (build_sharded_accel,
+                                                    render_sharded)
+    from raytracer_tpu_torch.renderer import render, value_and_grad_banded
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = (lambda *a: print(*a, flush=True)) if rank == 0 else \
+        (lambda *a: None)
+    init_distributed(f"localhost:{port}", world, rank, device=device)
+    say(f"process group: {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}, rank {rank} on {device}")
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    launches, res = {}, {"rank": rank}
+    try:
+        mesh_t = make_rt_mesh(tiles=world, prims=1)
+        mesh_p = make_rt_mesh(tiles=1, prims=world)
+        scene, cam, opts = load_scene_cli("config4")
+        dscene = scene.to(device)
+        tag = (f"config4 {opts.width}x{opts.height} d{opts.max_depth}, "
+               f"{scene.meshes.count} triangles")
+
+        # grid: replicated GridTracer, tiles = world size
+        grid = build_tracer(scene, "grid", device)
+        want, want_n = render(dscene, cam, opts, device=device, tracer=grid,
+                              count_rays=True)
+        md_counts(reset=True)
+        got, got_n = render_sharded(dscene, cam, opts, mesh_t,
+                                    count_rays=True, tracer=grid,
+                                    device=device)
+        torch.cuda.synchronize()
+        path = f"render_sharded {tag}, GridTracer, tiles={world}"
+        md_launched(say, path, ("grid_walk",), launches)
+        same = torch.equal(got, want) and float(got_n) == float(want_n)
+        say(f"{path}: image and traced ({float(got_n):.6g}) equal to the "
+            f"single-device render: {same}")
+        assert same, path
+        (t1, a1), (ts, a_s) = in_turns([
+            lambda: render(dscene, cam, opts, device=device, tracer=grid,
+                           count_rays=True),
+            lambda: render_sharded(dscene, cam, opts, mesh_t, count_rays=True,
+                                   tracer=grid, device=device)])
+        say(f"{path}: {ts:.4f} s (median of {MD_FRAMES}; "
+            f"{', '.join(f'{t:.4f}' for t in a_s)}) against the "
+            f"single-device frame {t1:.4f} s ("
+            f"{', '.join(f'{t:.4f}' for t in a1)}), in turns")
+        res["grid_s"], res["grid_single_s"] = ts, t1
+
+        # bvh: one BVH per primitive shard, prims = world size
+        bvh = build_tracer(scene, "bvh", device)
+        want, want_n = render(dscene, cam, opts, device=device, tracer=bvh,
+                              count_rays=True)
+        md_counts(reset=True)
+        got, got_n = render_sharded(dscene, cam, opts, mesh_p, accel="bvh",
+                                    count_rays=True, device=device)
+        torch.cuda.synchronize()
+        path = f"render_sharded {tag}, accel=bvh, prims={world}"
+        md_launched(say, path, ("bvh_walk",), launches)
+        diff = (got - want).abs().amax(dim=-1)
+        n_diff = int((diff > 0).sum())
+        bad = float((diff > IMG_TOL).float().mean())
+        say(f"{path}: vs the single-device --tracer bvh frame {n_diff} "
+            f"pixels differ, {bad:.4%} by > {IMG_TOL}; traced "
+            f"{float(got_n):.6g} vs {float(want_n):.6g}")
+        assert bad <= IMG_BAD, path
+        t0 = time.perf_counter()
+        stacked = build_sharded_accel(scene, world)
+        build_s = time.perf_counter() - t0
+        (t1, a1), (ts, a_s) = in_turns([
+            lambda: render(dscene, cam, opts, device=device, tracer=bvh,
+                           count_rays=True),
+            lambda: render_sharded(dscene, cam, opts, mesh_p, accel=stacked,
+                                   count_rays=True, device=device)])
+        say(f"{path}: {ts:.4f} s (median of {MD_FRAMES}, the per-shard BVH "
+            f"stack prebuilt in {build_s:.3f} s; "
+            f"{', '.join(f'{t:.4f}' for t in a_s)}) against the "
+            f"single-device BVHTracer frame {t1:.4f} s ("
+            f"{', '.join(f'{t:.4f}' for t in a1)}), in turns")
+        res["bvh_s"], res["bvh_single_s"] = ts, t1
+        res["bvh_diff_px"] = n_diff
+        del bvh, grid, stacked
+
+        # the sharded fused step: K1's live plan + K2 on a band per rank
+        res["fused"] = {}
+        for ftag, name, w, h, depth in (
+                ("config2 1920x1080 d2", "config2", 1920, 1080, 2),
+                ("config3 1024x1024 d4", "config3", 0, 0, None)):
+            fw, target = train_case(name, device, w, h, depth)
+            l1, g1, _ = fw.plan_value_and_grad(target)
+            md_counts(reset=True)
+            ls, gs = fw.plan_value_and_grad_sharded(target, mesh_t)
+            torch.cuda.synchronize()
+            path = f"plan_value_and_grad_sharded {ftag}, tiles={world}"
+            md_launched(say, path, ("fused_whitted_live_plan",
+                                    "fused_train"), launches)
+            rel = abs(float(ls) - float(l1)) / abs(float(l1))
+            worst = max(float((gs[k] - g1[k]).abs().max())
+                        / (float(g1[k].abs().max()) + 1e-9) for k in g1)
+            ms = cuda_ms(lambda: fw.plan_value_and_grad_sharded(
+                target, mesh_t), MD_STEPS)
+            ms1 = cuda_ms(lambda: fw.plan_value_and_grad(target), MD_STEPS)
+            # the step's one collective alone, on as many floats
+            flat = torch.zeros(1 + sum(g.numel() for g in gs.values()),
+                               device=device)
+            ar_ms = cuda_ms(lambda: dist.all_reduce(
+                flat, group=mesh_t.tiles_group), MD_REDUCES)
+            say(f"{path}: loss {float(ls):.8g} vs single-device "
+                f"{float(l1):.8g} (rel {rel:.3g}), tables within "
+                f"{worst:.3g} of each max; step {ms:.4f} ms against the "
+                f"single-device step {ms1:.4f} ms (CUDA events, mean of "
+                f"{MD_STEPS}); its all_reduce of {flat.numel()} floats "
+                f"alone {ar_ms:.4f} ms (mean of {MD_REDUCES})")
+            assert rel <= MD_LOSS_RTOL and worst <= MD_TABLE_TOL, path
+            res["fused"][ftag] = {"ms": ms, "single_ms": ms1,
+                                  "all_reduce_ms": ar_ms}
+            del fw, target
+
+        # the bounce-pipelined backward, config2 1080p d2
+        scene2, cam2, opts2 = load_scene_cli("config2", width=1920,
+                                             height=1080, max_depth=2)
+        d2 = scene2.to(device)
+        target = render_sharded(d2, cam2, opts2, mesh_t,
+                                device=device)[0] * 0.9
+        path = f"make_loss_and_grad config2 1920x1080 d2, tiles={world}"
+        out, steps = {}, {}
+        for ov in (True, False):
+            steps[ov] = make_loss_and_grad(scene2, cam2, opts2, mesh_t,
+                                           overlap=ov, device=device)
+            out[ov] = steps[ov](d2, target)
+        lo, lf = float(out[True][0]), float(out[False][0])
+        go = float_partition(out[True][1])[0]
+        gf = float_partition(out[False][1])[0]
+        worst = max(float(((a - b).abs() - OV_GRAD_RTOL * b.abs()).max())
+                    for a, b in zip(go, gf) if a.numel())
+        big = max(float(a.abs().max()) for a in go if a.numel())
+        p0 = {"center": d2.spheres.center, "albedo": d2.materials.albedo}
+        l1, _ = value_and_grad_banded(with_params, p0, d2, cam2, opts2,
+                                      target, device=device)
+        ms = {ov: cuda_ms(lambda ov=ov: steps[ov](d2, target), MD_STEPS)
+              for ov in (True, False)}
+        say(f"{path}: loss {lo:.8g} overlapped vs {lf:.8g} plain (rel "
+            f"{abs(lo - lf) / lf:.3g}); gradients past rtol {OV_GRAD_RTOL} "
+            f"by at most {worst:.3g} (atol {OV_GRAD_ATOL}; largest "
+            f"{big:.4g}); single-device autograd loss {float(l1):.8g} (rel "
+            f"{abs(lo - float(l1)) / float(l1):.3g}); step {ms[True]:.3f} ms "
+            f"overlapped, {ms[False]:.3f} ms plain (CUDA events, mean of "
+            f"{MD_STEPS})")
+        assert abs(lo - lf) <= OV_LOSS_RTOL * abs(lf), path
+        assert worst <= OV_GRAD_ATOL and big > 1e-6, path
+        assert abs(lo - float(l1)) <= OV_SINGLE_RTOL * abs(float(l1)), path
+        res["overlap_ms"], res["plain_ms"] = ms[True], ms[False]
+        del out, steps, target
+    finally:
+        dist.destroy_process_group()
+    res["launches"] = launches
+    if out_path is not None:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return res
+
+
+def multidevice_phase() -> dict:
+    """The multi-device paths at world size = the card count: in this
+    process at one card (a one-rank NCCL group), else one spawned process
+    per card. → {kernel: {path: launches summed over the ranks}}."""
+    import multiprocessing as mp
+
+    import torch
+
+    world = torch.cuda.device_count()
+    print(f"{card_line()} × {world}", flush=True)
+    port = free_port()
+    if world == 1:
+        results = [multidevice_rank(0, 1, port)]
+    else:
+        os.makedirs(OUT, exist_ok=True)
+        paths = [os.path.join(OUT, f"multidevice_rank{r}.json")
+                 for r in range(world)]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=multidevice_rank,
+                             args=(r, world, port, paths[r]))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        # a rank that fails leaves the others waiting in a collective:
+        # stop them all at the first failure, or at the deadline
+        deadline = time.monotonic() + MD_TIMEOUT_S
+        while (any(p.is_alive() for p in procs)
+               and time.monotonic() < deadline
+               and all(p.exitcode in (None, 0) for p in procs)):
+            time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * world, f"ranks exited {codes}"
+        results = []
+        for path in paths:
+            with open(path) as f:
+                results.append(json.load(f))
+    total = {}
+    for r in results:
+        for k, paths in r["launches"].items():
+            for path, n in paths.items():
+                key = f"{path} (all {world} ranks)"
+                total.setdefault(k, {})[key] = \
+                    total.get(k, {}).get(key, 0) + n
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2324,11 +2634,17 @@ def main() -> int:
     k1_plan_paths["cli optimize --plan --steps 30"] = trainers_main_path()
     k1_plan_paths["config3 1024x1024 d4 glass fwd+bwd step "
                   "(value_and_grad_replay, cap 1)"] = k1_glass
+
+    _phase("multi-device: render_sharded (config4 1080p d4: grid, bvh), "
+           "plan_value_and_grad_sharded, make_loss_and_grad over NCCL")
+    md = multidevice_phase()
     k1_launches["plan"] = sum(k1_plan_paths.values())
+    k1_live_paths = {"cli optimize --kernel --steps 30":
+                     k1_launches["live_plan"],
+                     **md["fused_whitted_live_plan"]}
+    k1_launches["live_plan"] = sum(k1_live_paths.values())
     k1_paths = {"image": {"cli render --tracer fused": k1_launches["image"]},
-                "live_plan": {"cli optimize --kernel --steps 30":
-                              k1_launches["live_plan"]},
-                "plan": k1_plan_paths}
+                "live_plan": k1_live_paths, "plan": k1_plan_paths}
 
     _phase("fused kernel times")
     k1 = {m: {"ms": 0.0, "plain_ms": 0.0, "ops": 0.0, "bytes": 0.0}
@@ -2366,7 +2682,8 @@ def main() -> int:
         "name": "grid_walk", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/grid_walk.cu",
         "replaces": "raytracer_tpu/ops/pallas_walk.py:111",
-        "launches": launches + k5_step + k5_c3 + k5_exact,
+        "launches": launches + k5_step + k5_c3 + k5_exact
+        + sum(md["grid_walk"].values()),
         "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": walk_bound, "bound_by": walk_by,
         "library_ms": None, "main_paths": {
@@ -2374,7 +2691,8 @@ def main() -> int:
             "config4 1080p d4 fwd+bwd step (record_plan)": k5_step,
             "cli render --config config3 --compact 0.5 (1024² d4 frame)":
                 k5_c3,
-            "config4 1080p d4 frame on the exact grid": k5_exact}}] + [{
+            "config4 1080p d4 frame on the exact grid": k5_exact,
+            **md["grid_walk"]}}] + [{
         "name": "fused_whitted" + ("" if m == "image" else "_" + m),
         "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_whitted.cu",
@@ -2387,9 +2705,12 @@ def main() -> int:
         "name": "fused_train", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_train.cu",
         "replaces": "raytracer_tpu/ops/fused.py:326 (train)",
-        "launches": train_launches, "max_abs_err": train_err,
+        "launches": train_launches + sum(md["fused_train"].values()),
+        "max_abs_err": train_err,
         "ms": train_ms, "plain_ms": train_plain_ms, "bound_ms": train_bound,
-        "bound_by": train_by, "library_ms": None}] + [{
+        "bound_by": train_by, "library_ms": None, "main_paths": {
+            "cli optimize --kernel --steps 30": train_launches,
+            **md["fused_train"]}}] + [{
         "name": BRUTE[kind][1 + m], "route": "cuda", "source": BRUTE[kind][3],
         "replaces": f"{BRUTE[kind][4]}:{BRUTE[kind][5][m]}",
         "launches": brute_launches[kind][m],
@@ -2403,12 +2724,13 @@ def main() -> int:
         "source": "raytracer_tpu_torch/csrc/bvh_walk.cu",
         "replaces": "raytracer_tpu/accel/bvh.py:348 (XLA while_loop; no "
                     "pallas_call)",
-        "launches": bvh["launches"], "max_abs_err": bvh["err"],
+        "launches": bvh["launches"] + sum(md["bvh_walk"].values()),
+        "max_abs_err": bvh["err"],
         "ms": bvh["ms"], "plain_ms": bvh["plain_ms"],
         "bound_ms": bvh["bound_ms"], "bound_by": bvh["bound_by"],
         "library_ms": None, "main_paths": {
             "cli render --config config4 --tracer bvh (1080p d4 frame)":
-                bvh["launches"]}}]}))
+                bvh["launches"], **md["bvh_walk"]}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,10 @@
   plain torch version; `ops/bvh_walk.py` holds the CUDA kernel and
   `bvh_trace`, which picks one of the two by the rays' device.
 
-Not ported: `build_stacked_bvh` (per-shard trees for the sharded tracers,
-which wait for the multi-device port) and the pregathered leaf layout
-`leaf_soa` (a TPU gather-count layout; the kernel reads its own packed
-table, ops/bvh_walk.pack_bvh_table).
+`build_stacked_bvh` builds one tree per primitive shard for the sharded
+and ring tracers (parallel/tracer.py). Not ported: the pregathered leaf
+layout `leaf_soa` (a TPU gather-count layout; the kernel reads its own
+packed table, ops/bvh_walk.pack_bvh_table).
 """
 
 import dataclasses
@@ -196,6 +196,14 @@ def build_bvh(verts, tris, leaf_size: int = 8, sah: bool = False,
     library loads, else NumPy), or binned SAH (`sah=True`, NumPy only: a
     better tree on unevenly spread geometry, the same walk). Vertices round
     through f32 first, so both builders read the same values."""
+    t = np.asarray(tris).shape[0]
+    return _to_device(*_build_arrays(verts, tris, leaf_size, sah),
+                      leaf_size, t, device)
+
+
+def _build_arrays(verts, tris, leaf_size: int, sah: bool = False):
+    """The host build → (aabb_min [n, 3], aabb_max [n, 3], leaf_tris [n, C],
+    hit_link [8n], miss_link [8n]) numpy arrays."""
     from raytracer_tpu_torch.utils.native import native_lib
 
     t = np.asarray(tris).shape[0]
@@ -207,11 +215,12 @@ def build_bvh(verts, tris, leaf_size: int = 8, sah: bool = False,
     verts = np.asarray(verts, np.float32)
     lib = None if sah else native_lib()
     if lib is not None and lib.has_bvh:
-        amin, amax, leaf, hit, miss = lib.bvh_build(
-            verts, np.asarray(tris, np.int32), leaf_size)
-    else:
-        amin, amax, leaf, hit, miss = _build_numpy(verts, np.asarray(tris),
-                                                   leaf_size, sah)
+        return lib.bvh_build(verts, np.asarray(tris, np.int32), leaf_size)
+    return _build_numpy(verts, np.asarray(tris), leaf_size, sah)
+
+
+def _to_device(amin, amax, leaf, hit, miss, leaf_size: int, n_tris: int,
+               device) -> BVHData:
     aabb6, links2 = _pack_fused(amin, amax, hit, miss)
 
     def dev(a):
@@ -219,7 +228,71 @@ def build_bvh(verts, tris, leaf_size: int = 8, sah: bool = False,
 
     return BVHData(aabb6=dev(aabb6), links2=dev(links2.astype(np.int32)),
                    leaf_tris=dev(np.asarray(leaf, np.int32)),
-                   n_nodes=aabb6.shape[0], capacity=leaf_size, n_tris=t)
+                   n_nodes=aabb6.shape[0], capacity=leaf_size, n_tris=n_tris)
+
+
+def build_stacked_bvh(v0, e1, e2, n_shards: int, leaf_size: int = 8):
+    """Per-shard BVHs over equal contiguous triangle chunks → stacked host
+    arrays (the reference's `build_stacked_bvh`, array for array).
+
+    For the primitive-sharded and ring tracers (parallel/tracer.py): the
+    padded (v0, e1, e2) [T, 3] SoA splits into `n_shards` equal chunks (the
+    split `parallel.tracer.pad_trace_geom` makes over the prims ranks); each
+    chunk gets its own BVH with LOCAL triangle ids, and the trees are padded
+    to a common node count so that every shard's tables have one shape (the
+    ring sends them from rank to rank). Shorter trees' done-sentinel links
+    are remapped to the common n_nodes; pad nodes carry inverted boxes
+    (never hit) and sentinel links and leaves, so no walk reaches them.
+
+    → {"aabb_min", "aabb_max": [S, n, 3] f32, "leaf_tris": [S, n, C] i32,
+    "hit_link", "miss_link": [S, 8n] i32, "n_nodes": n, "capacity": C,
+    "tris_per_shard": T / S}. `stacked_shard` turns shard s into a BVHData.
+    """
+    v0 = np.asarray(v0, np.float32)
+    t_total = v0.shape[0]
+    if t_total % n_shards:
+        raise ValueError(f"{t_total} triangles do not split into {n_shards} "
+                         "equal shards: pad them first")
+    ts = t_total // n_shards
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    parts = []
+    for s in range(n_shards):
+        sl = slice(s * ts, (s + 1) * ts)
+        # a vertex soup per chunk: triangle i is (i, i + ts, i + 2·ts)
+        verts = np.concatenate([v0[sl], v0[sl] + e1[sl], v0[sl] + e2[sl]])
+        tris = np.stack([np.arange(ts), np.arange(ts) + ts,
+                         np.arange(ts) + 2 * ts], axis=1).astype(np.int32)
+        parts.append(_build_arrays(verts, tris, leaf_size))
+
+    n_max = max(p[0].shape[0] for p in parts)
+    S = n_shards
+    amin = np.full((S, n_max, 3), 1.0, np.float32)   # inverted box
+    amax = np.full((S, n_max, 3), -1.0, np.float32)  # (min > max: no hit)
+    leaf = np.full((S, n_max, leaf_size), ts, np.int32)
+    hit = np.full((S, 8 * n_max), n_max, np.int32)
+    miss = np.full((S, 8 * n_max), n_max, np.int32)
+    for s, (p_min, p_max, p_leaf, p_hit, p_miss) in enumerate(parts):
+        n = p_min.shape[0]
+        amin[s, :n] = p_min
+        amax[s, :n] = p_max
+        leaf[s, :n] = p_leaf
+        for out, lk in ((hit, p_hit), (miss, p_miss)):
+            lk = np.asarray(lk).reshape(8, n)
+            lk = np.where(lk == n, n_max, lk)  # done-sentinel → common one
+            out[s] = np.pad(lk, ((0, 0), (0, n_max - n)),
+                            constant_values=n_max).reshape(-1)
+    return {"aabb_min": amin, "aabb_max": amax, "leaf_tris": leaf,
+            "hit_link": hit, "miss_link": miss, "n_nodes": n_max,
+            "capacity": leaf_size, "tris_per_shard": ts}
+
+
+def stacked_shard(stacked: dict, s: int, device) -> BVHData:
+    """Shard `s` of `build_stacked_bvh`'s arrays as a BVHData on `device`
+    over that shard's local triangle ids."""
+    return _to_device(*(stacked[k][s] for k in (
+        "aabb_min", "aabb_max", "leaf_tris", "hit_link", "miss_link")),
+        stacked["capacity"], stacked["tris_per_shard"], device)
 
 
 def _pad_soa(v0, e1, e2):

@@ -314,6 +314,39 @@ class FusedWhitted:
                                            eps)
         return loss, grads, img
 
+    def plan_value_and_grad_sharded(self, target, mesh, eps=0.0):
+        """The data-parallel training step on the ranks of `mesh`
+        (`parallel.mesh.RtMesh`) → (loss_sum, grads), the same on every
+        rank: `plan_value_and_grad` of the whole frame, summed over bands.
+
+        Each rank runs `plan_value_and_grad` on its band of H / T rows
+        (tile t: rows [t·H/T, (t+1)·H/T)) against that band of `target`
+        (the frame's [H, W, 3] image): it renders and records the plan of
+        its own band only. The loss and the four gradient tables are then
+        all-reduced over 'tiles' (one flat sum). Param mode only; H must
+        split evenly over the tiles."""
+        import torch.distributed as dist
+
+        h = self.opts.height
+        n_tiles = mesh.shape["tiles"]
+        if h % n_tiles:
+            raise ValueError(f"height {h} does not split over {n_tiles} "
+                             "tiles")
+        rows = h // n_tiles
+        r0 = mesh.tile * rows
+        target = _check_target(self, h, target)[r0:r0 + rows]
+        loss, grads, _ = self.plan_value_and_grad(target, r0, rows, eps)
+        names = ("sph", "pln", "mat", "lgt")
+        flat = torch.cat([loss.reshape(1)]
+                         + [grads[k].reshape(-1) for k in names])
+        dist.all_reduce(flat, group=mesh.tiles_group)
+        out, k = {}, 1
+        for name in names:
+            g = grads[name]
+            out[name] = flat[k:k + g.numel()].view(g.shape)
+            k += g.numel()
+        return flat[0], out
+
 
 def _check_target(fw: FusedWhitted, rows: int, target) -> torch.Tensor:
     """The band's target as a [rows, W, 3] f32 tensor on the object's

@@ -22,24 +22,34 @@ from raytracer_tpu_torch.ops.safemath import cross, dot, normalize, safe_div
 INF = geom.INF
 
 
-def _tri_chunks(scene: Scene, chunk: int):
-    v0, e1, e2 = scene.meshes.tri_soa()
+def _tri_chunks(v0, e1, e2, chunk: int):
     for s in range(0, v0.shape[0], chunk):
         yield s, v0[s:s + chunk], e1[s:s + chunk], e2[s:s + chunk]
 
 
-def _tri_nearest(orig, direc, scene, t_min, chunk):
-    """Streaming min-reduce over triangle chunks → (best_t, best_i) per ray."""
+def _tri_nearest(orig, direc, v0, e1, e2, t_min, chunk):
+    """Streaming min-reduce over chunks of the (v0, e1, e2) [T, 3] triangles
+    → (best_t, best_i) per ray."""
     n = orig.shape[0]
     bt = torch.full((n,), INF, dtype=torch.float32, device=orig.device)
     bi = torch.zeros((n,), dtype=torch.int32, device=orig.device)
-    for off, cv0, ce1, ce2 in _tri_chunks(scene, chunk):
+    for off, cv0, ce1, ce2 in _tri_chunks(v0, e1, e2, chunk):
         ts, _, _ = geom.triangle_hits(orig, direc, cv0, ce1, ce2, t_min)
         tc, ic = torch.min(ts, dim=1)  # first index on ties
         better = tc < bt
         bt = torch.where(better, tc, bt)
         bi = torch.where(better, ic.to(torch.int32) + off, bi)
     return bt, bi
+
+
+def _tri_occluded(orig, direc, v0, e1, e2, t_min, max_t, chunk):
+    """Any triangle hit with t in (t_min, max_t), chunk by chunk → bool
+    [N]."""
+    occ = torch.zeros((orig.shape[0],), dtype=torch.bool, device=orig.device)
+    for _, cv0, ce1, ce2 in _tri_chunks(v0, e1, e2, chunk):
+        ts, _, _ = geom.triangle_hits(orig, direc, cv0, ce1, ce2, t_min)
+        occ |= torch.any(ts < max_t[:, None], dim=1)
+    return occ
 
 
 @dataclasses.dataclass
@@ -66,31 +76,64 @@ def merge_triangles(base: Hit, tb, ib) -> Hit:
 
 
 @torch.no_grad()
+def dense_nearest(orig, direc, t_min: float, sph_c, sph_r, pl_p, pl_n,
+                  tris=None) -> Hit:
+    """Nearest hit over sphere (sph_c [Ns,3], sph_r [Ns]) and plane (pl_p,
+    pl_n [Np,3]) tables and a triangle search: `tris` is None (no
+    triangles) or a callable () → (best_t, best_i) per ray. The one dense
+    search, over a scene (`nearest_hit`) or a shard's arrays
+    (parallel/tracer.py)."""
+    n = orig.shape[0]
+    dev = orig.device
+    best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    kind = torch.full((n,), KIND_NONE, dtype=torch.int32, device=dev)
+    idx = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if sph_c.shape[0]:
+        ts = geom.sphere_hits(orig, direc, sph_c, sph_r, t_min)
+        tb, ib = torch.min(ts, dim=1)
+        best_t, kind, idx = _merge(best_t, kind, idx, tb, ib, KIND_SPHERE)
+    if pl_p.shape[0]:
+        ts = geom.plane_hits(orig, direc, pl_p, pl_n, t_min)
+        tb, ib = torch.min(ts, dim=1)
+        best_t, kind, idx = _merge(best_t, kind, idx, tb, ib, KIND_PLANE)
+    if tris is not None:
+        tb, ib = tris()
+        best_t, kind, idx = _merge(best_t, kind, idx, tb, ib, KIND_TRIANGLE)
+    return Hit(kind=kind, idx=idx, t=best_t)
+
+
+@torch.no_grad()
+def dense_occluded(orig, direc, max_t, t_min: float, sph_c, sph_r, pl_p,
+                   pl_n, tris=None):
+    """Any hit with t in (t_min, max_t) over the tables of `dense_nearest`
+    → bool [N]; `tris` is None or a callable () → the triangles' bool [N]
+    any-hit."""
+    occ = torch.zeros((orig.shape[0],), dtype=torch.bool, device=orig.device)
+    if sph_c.shape[0]:
+        ts = geom.sphere_hits(orig, direc, sph_c, sph_r, t_min)
+        occ |= torch.any(ts < max_t[:, None], dim=1)
+    if pl_p.shape[0]:
+        ts = geom.plane_hits(orig, direc, pl_p, pl_n, t_min)
+        occ |= torch.any(ts < max_t[:, None], dim=1)
+    if tris is not None:
+        occ |= tris()
+    return occ
+
+
+@torch.no_grad()
 def nearest_hit(scene: Scene, orig, direc, t_min: float, tri_chunk: int,
                 active=None) -> Hit:
     """Nearest hit over all groups (dense search). `active` is accepted for
     tracer-interface uniformity and ignored: dense search has no per-lane
     trip count to cut."""
     del active
-    n = orig.shape[0]
-    dev = orig.device
-    best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
-    kind = torch.full((n,), KIND_NONE, dtype=torch.int32, device=dev)
-    idx = torch.zeros((n,), dtype=torch.int32, device=dev)
-    if scene.spheres.count:
-        ts = geom.sphere_hits(orig, direc, scene.spheres.center,
-                              scene.spheres.radius, t_min)
-        tb, ib = torch.min(ts, dim=1)
-        best_t, kind, idx = _merge(best_t, kind, idx, tb, ib, KIND_SPHERE)
-    if scene.planes.count:
-        ts = geom.plane_hits(orig, direc, scene.planes.point,
-                             scene.planes.normal, t_min)
-        tb, ib = torch.min(ts, dim=1)
-        best_t, kind, idx = _merge(best_t, kind, idx, tb, ib, KIND_PLANE)
-    if scene.meshes.count:
-        tb, ib = _tri_nearest(orig, direc, scene, t_min, tri_chunk)
-        best_t, kind, idx = _merge(best_t, kind, idx, tb, ib, KIND_TRIANGLE)
-    return Hit(kind=kind, idx=idx, t=best_t)
+    sp, pl, me = scene.spheres, scene.planes, scene.meshes
+    tris = None
+    if me.count:
+        def tris():
+            return _tri_nearest(orig, direc, *me.tri_soa(), t_min, tri_chunk)
+    return dense_nearest(orig, direc, t_min, sp.center, sp.radius, pl.point,
+                         pl.normal, tris)
 
 
 @torch.no_grad()
@@ -99,20 +142,14 @@ def occluded(scene: Scene, orig, direc, max_t, t_min: float,
     """Any-hit with t in (t_min, max_t) → bool [N]. Shadow-ray test (SPEC);
     tests all objects including transparent ones. `active` ignored (dense)."""
     del active
-    occ = torch.zeros((orig.shape[0],), dtype=torch.bool, device=orig.device)
-    if scene.spheres.count:
-        ts = geom.sphere_hits(orig, direc, scene.spheres.center,
-                              scene.spheres.radius, t_min)
-        occ |= torch.any(ts < max_t[:, None], dim=1)
-    if scene.planes.count:
-        ts = geom.plane_hits(orig, direc, scene.planes.point,
-                             scene.planes.normal, t_min)
-        occ |= torch.any(ts < max_t[:, None], dim=1)
-    if scene.meshes.count:
-        for _, cv0, ce1, ce2 in _tri_chunks(scene, tri_chunk):
-            ts, _, _ = geom.triangle_hits(orig, direc, cv0, ce1, ce2, t_min)
-            occ |= torch.any(ts < max_t[:, None], dim=1)
-    return occ
+    sp, pl, me = scene.spheres, scene.planes, scene.meshes
+    tris = None
+    if me.count:
+        def tris():
+            return _tri_occluded(orig, direc, *me.tri_soa(), t_min, max_t,
+                                 tri_chunk)
+    return dense_occluded(orig, direc, max_t, t_min, sp.center, sp.radius,
+                          pl.point, pl.normal, tris)
 
 
 @dataclasses.dataclass
