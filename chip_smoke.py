@@ -77,6 +77,22 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   overlapped against the plain backward and against the single-device
   autograd loss, both step times.
 
+- tooling, through the CLI a user calls: `cli render --config config4
+  --tile-block 270x480` (16 tiles) and `32x160` (408 tiles) at 1920×1080
+  d4, each image (and the rays) bit-equal to the main-path frame, 5
+  frames in turns against the one-tile frame; `cli render --trace` in a
+  process of its own (top device ops, the frame's device-idle share: 1 −
+  the union of kernel, copy and set intervals over the traced window)
+  and a warm frame traced likewise; `cli render --resilient` without a
+  fault and with a countdown of 1 (band worker processes), each bit-equal
+  to the main-path frame, and the parts of a fresh process's frame (import,
+  CUDA context, grid build, first and second frame: `cold_start`); `cli optimize --kernel --supervise` (config5
+  128², 8 steps) with children that crash every 3 steps against an
+  uncrashed supervised run (rtol 1e-6, ≥2 restarts), and `cli optimize`
+  stopped at 5 steps and `--resume`d to 8 against 8 straight. The launches
+  of child processes are counted through a `sitecustomize.py` written to
+  smoke_out/counthook/; alone: `tooling_alone()`.
+
 Before the kernels, raygen's pixel coordinates at 1920×1080 on the card are
 held to the CPU's bit for bit.
 
@@ -115,6 +131,7 @@ FD_EPS = 3e-4        # central differences (tests/test_fused_vjp.py's step)
 PLAIN_BAND_PX = 1 << 17  # autograd sub-bands of the plain train version
 PEAK_OPS = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+ALL_OPS = 1 << 30    # `top_ops`'s k: every name in the trace
 
 # fp32 operations of the fused kernel per piece, counted from
 # csrc/fused_whitted.cu (add, sub, mul, div, min, max, sqrt, rsqrt, floor,
@@ -208,21 +225,23 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
 
 def profile_ms(fn, key: str) -> float:
     """Device milliseconds of one run of `fn()` spent in kernels whose names
-    contain `key`, from torch.profiler, after a warm-up run."""
+    contain `key`, from a torch.profiler trace (`utils/profiling`), after a
+    warm-up run."""
+    import tempfile
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.utils.profiling import top_ops, xprof_trace
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        if key in evt.key:
-            us = getattr(evt, "device_time_total", None)
-            total += (evt.cuda_time_total if us is None else us) / 1e3
-    return total
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        with xprof_trace(d, device="cuda"):
+            fn()
+            torch.cuda.synchronize()
+        return sum(secs for name, secs, _ in top_ops(d, k=ALL_OPS)
+                   if key in name) * 1e3
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -1449,11 +1468,13 @@ def profile_step():
     process of its own (a second profiler session in one process read no
     device time): prints the device busy time and the top ops by their own
     device time."""
+    import tempfile
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from raytracer_tpu_torch.renderer import render
     from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+    from raytracer_tpu_torch.utils.profiling import top_ops, xprof_trace
 
     device = torch.device("cuda", 0)
     scene, cam, opts = load_scene_cli("config4")
@@ -1470,23 +1491,22 @@ def profile_step():
         torch.cuda.synchronize()
 
     step()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-    wall = (time.perf_counter() - t0) * 1e3
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    events = prof.key_averages()
-    ops = sorted((e for e in events if e.key.startswith("aten::")), key=dev,
-                 reverse=True)
+    os.makedirs(OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        with xprof_trace(d, device=device) as prof:
+            t0 = time.perf_counter()
+            step()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = top_ops(d, k=ALL_OPS)
     # device busy: the kernels' own times (an op's device time is its
     # kernels', so ops and kernels are not summed together)
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(dev(e) for e in kernels) / 1e3
+    busy = sum(secs for _, secs, _ in kernels) * 1e3
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=dev, reverse=True)
     print(f"profiled step: {wall:.1f} ms wall (profiler on), "
-          f"{sum(e.count for e in kernels)} kernels, device busy "
+          f"{sum(n for _, _, n in kernels)} kernels, device busy "
           f"{busy:.1f} ms; top ops by own device time:")
     for e in ops[:12]:
         print(f"  {e.key}: {dev(e) / 1e3:.3f} ms in {e.count} calls")
@@ -2431,6 +2451,523 @@ def multidevice_phase() -> dict:
     return total
 
 
+# tooling (`cli render --tile-block|--trace|--resilient`, `cli optimize
+# --supervise|--resume`): config4 1080p d4 frames and config5 128² runs
+TILE_BLOCK = (270, 480)   # 16 tiles of the 1080p frame
+REF_BLOCK = (32, 160)     # the reference preset's block (presets.py:177-187)
+REF_BLOCK_MAX_S = 60.0    # predicted past this: the 32x160 frame at 480x270
+SMALL_FRAME = (480, 270)
+RESUME_RTOL = 1e-6        # exact resume (tests/test_elastic.py:89)
+SUP_FAULT_STEPS = 3       # --fault-after-steps of the crashed supervised run
+TOOL_TIMEOUT_S = 600      # each child process of the phase
+HOOK = os.path.join(OUT, "counthook")
+# a python process that starts with HOOK on its PYTHONPATH imports this as
+# `sitecustomize` and writes its kernels' launch counts at exit (os._exit
+# included): the counts of the CLI's child processes
+HOOK_SRC = '''"""Kernel launch counts of this process, written at exit to
+counts/<pid>.json beside this file (chip_smoke.py writes this file)."""
+import atexit
+import json
+import os
+import sys
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_KERNELS = %r
+
+
+def _dump():
+    out = {}
+    for name, (mod, attr) in _KERNELS.items():
+        m = sys.modules.get(mod)
+        out[name] = getattr(m, attr, 0) if m is not None else 0
+    d = os.path.join(_HERE, "counts")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "%%d.json" %% os.getpid()), "w") as f:
+        json.dump(out, f)
+
+
+_os_exit = os._exit
+
+
+def _exit(code):
+    _dump()
+    _os_exit(code)
+
+
+atexit.register(_dump)
+os._exit = _exit
+# the environment's own sitecustomize, if it had one, still runs
+for _p in sys.path:
+    _f = os.path.join(os.path.abspath(_p or "."), "sitecustomize.py")
+    if os.path.dirname(_f) != _HERE and os.path.isfile(_f):
+        with open(_f) as _fh:
+            exec(compile(_fh.read(), _f, "exec"), {"__name__": "sitecustomize",
+                                                   "__file__": _f})
+        break
+'''
+
+
+def hook_env() -> dict:
+    """os.environ with the count hook first on PYTHONPATH; counts reset."""
+    import shutil
+
+    os.makedirs(HOOK, exist_ok=True)
+    with open(os.path.join(HOOK, "sitecustomize.py"), "w") as f:
+        f.write(HOOK_SRC % (MD_KERNELS,))
+    shutil.rmtree(os.path.join(HOOK, "counts"), ignore_errors=True)
+    path = os.environ.get("PYTHONPATH", "")
+    return dict(os.environ, PYTHONPATH=HOOK + (os.pathsep + path if path
+                                                else ""))
+
+
+def hook_counts() -> dict:
+    """Launches summed over the processes that wrote counts since
+    `hook_env()`."""
+    d = os.path.join(HOOK, "counts")
+    total = {k: 0 for k in MD_KERNELS}
+    for name in os.listdir(d) if os.path.isdir(d) else []:
+        with open(os.path.join(d, name)) as f:
+            for k, n in json.load(f).items():
+                total[k] += n
+    return total
+
+
+@contextlib.contextmanager
+def hooked_environ():
+    """This process's environment as `hook_env()`'s while the block runs
+    (for the children that the port's own code starts)."""
+    saved = dict(os.environ)
+    os.environ.update(hook_env())
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+@contextlib.contextmanager
+def capturing(mod, name):
+    """Wrap `mod.name`: record each call's (args, output, wall s ended by a
+    synchronize)."""
+    import torch
+
+    saved = getattr(mod, name)
+    got = []
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = saved(*args, **kw)
+        torch.cuda.synchronize()
+        got.append((args, out, time.perf_counter() - t0))
+        return out
+
+    setattr(mod, name, call)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, saved)
+
+
+def cli_frame(argv):
+    """`cli.main(argv)` in-process (a render) → (image, rays, wall s of its
+    `render_banded`, stdout, K5 launches)."""
+    from raytracer_tpu_torch import cli, renderer
+    from raytracer_tpu_torch.ops import walk as W
+
+    buf = io.StringIO()
+    W.launches = 0
+    with capturing(renderer, "render_banded") as got, \
+            contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    launches = W.launches
+    assert len(got) == 1, len(got)
+    _, (img, rays), secs = got[0]
+    return img, rays, secs, buf.getvalue(), launches
+
+
+def run_child(argv, tag):
+    """A python child with the count hook → (stdout, stderr, wall s,
+    launches)."""
+    env = hook_env()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=TOOL_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    assert r.returncode == 0, f"{tag}: exit {r.returncode}\n{r.stderr[-4000:]}"
+    return r.stdout, r.stderr, dt, hook_counts()
+
+
+def idle_share(trace_dir, tag):
+    """1 − (union of the card's kernel, copy and set intervals) / (the
+    traced window: first to last event of any kind), from the trace files
+    under `trace_dir` → the share."""
+    from raytracer_tpu_torch.utils.profiling import DEVICE_CATS, trace_events
+
+    events = trace_events(trace_dir)
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events
+                   if e.get("cat", "").lower() in DEVICE_CATS)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    share = 1.0 - busy / (t1 - t0)
+    n_kernels = sum(1 for e in events if e.get("cat", "").lower() == "kernel")
+    print(f"{tag}: traced window {(t1 - t0) / 1e3:.3f} ms, {n_kernels} "
+          f"kernels, {len(spans)} device events, device busy (their union) "
+          f"{busy / 1e3:.3f} ms, device-idle share {share:.4f}", flush=True)
+    assert len(spans) > 0, f"{tag}: the trace holds no device event"
+    return share
+
+
+def trace_warm_frame(logdir):
+    """config4 1080p d4: one frame, then a second one under `xprof_trace`
+    (in a process of its own: one profiler session per process)."""
+    import torch
+
+    from raytracer_tpu_torch.renderer import render_banded
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+    from raytracer_tpu_torch.utils.profiling import xprof_trace
+
+    device = torch.device("cuda", 0)
+    scene, cam, opts = load_scene_cli("config4")
+    tracer = build_tracer(scene, "auto", device)
+    render_banded(scene, cam, opts, device=device, tracer=tracer)
+    torch.cuda.synchronize()
+    with xprof_trace(logdir, device=device):
+        render_banded(scene, cam, opts, device=device, tracer=tracer)
+        torch.cuda.synchronize()
+
+
+def cold_start():
+    """The parts of a fresh process's config4 1080p d4 frame, in the order a
+    band worker (`utils/elastic.py`) runs them: prints each part's seconds
+    (run in a process of its own)."""
+    t0 = time.perf_counter()
+    import torch
+
+    t_torch = time.perf_counter()
+    from raytracer_tpu_torch.renderer import render_banded
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    t_pkg = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t_ctx = time.perf_counter()
+    scene, cam, opts = load_scene_cli("config4")
+    tracer = build_tracer(scene, "auto", device)
+    torch.cuda.synchronize()
+    t_tracer = time.perf_counter()
+    parts = []
+    for _ in range(2):
+        t = time.perf_counter()
+        render_banded(scene, cam, opts, device=device, tracer=tracer)
+        torch.cuda.synchronize()
+        parts.append(time.perf_counter() - t)
+    print(f"cold start in a fresh process: import torch {t_torch - t0:.3f} "
+          f"s, the package {t_pkg - t_torch:.3f} s, CUDA context "
+          f"{t_ctx - t_pkg:.3f} s, scene + grid build {t_tracer - t_ctx:.3f} "
+          f"s, first frame {parts[0]:.4f} s, second frame {parts[1]:.4f} s",
+          flush=True)
+
+
+def block_tiles(h, w, bh, bw) -> int:
+    """Tiles of an h×w frame in bh×bw screen blocks (`renderer.block_perm`
+    pads a partial block row or column to whole blocks)."""
+    return -(-h // bh) * -(-w // bw)
+
+
+def tile_block_phase(scene, cam, opts, tracer, frame, rays, device):
+    """`cli render --config config4 --tile-block 270x480` (16 tiles) and at
+    the reference's 32x160 (408 tiles): image and rays bit-equal to the
+    one-tile frame; 5 frames in turns → {path: K5 launches}."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_tpu_torch.renderer import render_banded
+
+    launches = {}
+    bh, bw = TILE_BLOCK
+    img, r, secs, text, n = cli_frame([
+        "render", "--config", "config4", "--tile-block", f"{bh}x{bw}",
+        "--out", os.path.join(OUT, "config4_block.png")])
+    print(text, end="")
+    path = f"cli render --config config4 --tile-block {bh}x{bw} (1080p d4)"
+    launches[path] = n
+    ntiles = block_tiles(opts.height, opts.width, bh, bw)
+    print(f"{path}: {ntiles} tiles, render {secs:.4f} s, {n} walk launches; "
+          f"image bit-equal to the one-tile frame: "
+          f"{bool(torch.equal(img, frame))}, rays {float(r):.9g} against "
+          f"{float(rays):.9g}", flush=True)
+    assert torch.equal(img, frame), f"{path}: image differs"
+    assert float(r) == float(rays), (float(r), float(rays))
+    assert n > 0, f"{path}: the walk never launched"
+    block = dataclasses.replace(opts, tile_rays=bh * bw, tile_block=(bh, bw))
+    (one_s, one_all), (blk_s, blk_all) = in_turns([
+        lambda: render_banded(scene, cam, opts, device=device, tracer=tracer),
+        lambda: render_banded(scene, cam, block, device=device,
+                              tracer=tracer)])
+    print(f"config4 1080p d4, 5 frames in turns: one tile {one_s:.4f} s "
+          f"median ({', '.join(f'{t:.4f}' for t in one_all)}); {ntiles} "
+          f"tiles of {bh}x{bw} {blk_s:.4f} s ("
+          f"{', '.join(f'{t:.4f}' for t in blk_all)})", flush=True)
+
+    rbh, rbw = REF_BLOCK
+    predicted = blk_s / ntiles * block_tiles(opts.height, opts.width, rbh,
+                                             rbw)
+    argv = ["render", "--config", "config4", "--tile-block", f"{rbh}x{rbw}",
+            "--out", os.path.join(OUT, "config4_refblock.png")]
+    want = frame
+    size = "1080p"
+    if predicted > REF_BLOCK_MAX_S:
+        w, h = SMALL_FRAME
+        size = f"{w}x{h}"
+        small = dataclasses.replace(opts, width=w, height=h)
+        argv += ["--width", str(w), "--height", str(h)]
+        want = render_banded(scene, cam, small, device=device,
+                             tracer=tracer)[0]
+        print(f"the {rbh}x{rbw} frame is predicted at {predicted:.1f} s "
+              f"(> {REF_BLOCK_MAX_S} s): run at {size} d4 instead",
+              flush=True)
+    img, r, secs, text, n = cli_frame(argv)
+    print(text, end="")
+    path = f"cli render --config config4 --tile-block {rbh}x{rbw} ({size} d4)"
+    launches[path] = n
+    print(f"{path}: {block_tiles(img.shape[0], img.shape[1], rbh, rbw)} "
+          "tiles (a partial block row is padded to whole blocks), "
+          f"render {secs:.4f} s (predicted {predicted:.1f} s from the "
+          f"{ntiles}-tile frame), {n} walk launches; bit-equal to the "
+          f"one-tile frame: {bool(torch.equal(img, want))}", flush=True)
+    assert torch.equal(img, want), f"{path}: image differs"
+    assert n > 0, f"{path}: the walk never launched"
+    return launches
+
+
+def trace_phase():
+    """`cli render --config config4 --trace DIR` (1080p d4) in a process of
+    its own: top ops and the frame's device-idle share; the same for a warm
+    frame (`trace_warm_frame`) → {path: K5 launches}."""
+    import shutil
+
+    from raytracer_tpu_torch.utils.profiling import print_top_ops
+
+    d = os.path.join(OUT, "trace_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    out, _, dt, counts = run_child([
+        "-m", "raytracer_tpu_torch.cli", "render", "--config", "config4",
+        "--trace", d, "--out", os.path.join(OUT, "config4_trace.png")],
+        "cli render --trace")
+    print(out, end="")
+    path = "cli render --config config4 --trace (1080p d4, own process)"
+    print(f"{path}: {dt:.2f} s for the process, {counts['grid_walk']} walk "
+          "launches; top device ops:", flush=True)
+    assert counts["grid_walk"] > 0, f"{path}: the walk never launched"
+    print_top_ops(d, k=12)
+    idle_share(d, "cli render --trace (the process's first frame)")
+    d2 = os.path.join(OUT, "trace_warm")
+    shutil.rmtree(d2, ignore_errors=True)
+    run_child(["-c", f"import chip_smoke; chip_smoke.trace_warm_frame({d2!r})"],
+              "warm frame trace")
+    print("warm frame (the second in its process); top device ops:")
+    print_top_ops(d2, k=12)
+    idle_share(d2, "warm frame")
+    return {path: counts["grid_walk"]}
+
+
+def resilient_phase(frame, frame_s):
+    """The parts of a fresh process's frame (`cold_start`), then `cli render
+    --config config4 --resilient` (1080p d4) without a fault and with a
+    countdown of 1: each image bit-equal to the main-path frame → {path: K5
+    launches}."""
+    import numpy as np
+
+    from raytracer_tpu_torch import cli
+
+    want = frame.cpu().numpy()
+    out, _, dt, _ = run_child(["-c", "import chip_smoke; "
+                               "chip_smoke.cold_start()"], "cold start")
+    print(out, end="")
+    print(f"(the process: {dt:.2f} s wall, interpreter start included)",
+          flush=True)
+    cd = os.path.join(OUT, "countdown.txt")
+    launches = {}
+    for tag, extra in (("", []), (" --fault-countdown (1)",
+                                  ["--fault-countdown", cd])):
+        with open(cd, "w") as f:
+            f.write("1")
+        buf = io.StringIO()
+        with hooked_environ(), capturing(cli, "_save") as saved, \
+                contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            cli.main(["render", "--config", "config4", "--resilient",
+                      "--out", os.path.join(OUT, "config4_resilient.png"),
+                      *extra])
+            dt = time.perf_counter() - t0
+            counts = hook_counts()
+        text = buf.getvalue()
+        print(text, end="")
+        ok, failed, retries = (int(x) for x in re.search(
+            r"(\d+) bands ok, (\d+) failed, (\d+) retries", text).groups())
+        img = saved[0][0][1]
+        path = f"cli render --config config4 --resilient{tag} (1080p d4)"
+        launches[path] = counts["grid_walk"]
+        equal = bool(np.array_equal(img, want))
+        print(f"{path}: {dt:.2f} s wall against the in-process frame's "
+              f"{frame_s:.4f} s; {ok} bands ok, {failed} failed, {retries} "
+              f"retries; {counts['grid_walk']} walk launches in the workers; "
+              f"bit-equal to the main-path frame: {equal}", flush=True)
+        assert failed == 0 and equal, path
+        assert counts["grid_walk"] > 0, f"{path}: the walk never launched"
+        if extra:
+            with open(cd) as f:
+                assert f.read().strip() == "0", "the fault was not consumed"
+            assert retries >= 1 and ok >= 2, (ok, retries)
+    return launches
+
+
+def supervised_phase():
+    """`cli optimize --kernel --supervise` (config5 128², 8 steps) with
+    children that crash every 3 steps against an uncrashed supervised run;
+    the autograd trainer stopped at 5 steps and resumed to 8 against 8
+    straight → {kernel: {path: launches}}."""
+    import shutil
+
+    import numpy as np
+
+    launches = {"fused_whitted_live_plan": {}, "fused_train": {}}
+    runs = {}
+    for tag, extra in (("crashed", ["--fault-after-steps",
+                                    str(SUP_FAULT_STEPS)]),
+                       ("uncrashed", [])):
+        ck = os.path.join(OUT, f"ck_{tag}")
+        shutil.rmtree(ck, ignore_errors=True)
+        out, err, dt, counts = run_child([
+            "-m", "raytracer_tpu_torch.cli", "optimize", "--kernel",
+            "--steps", "8", "--ckpt-every", "2", "--log-every", "1",
+            "--supervise", "--checkpoint", ck, "--out",
+            os.path.join(OUT, f"supervised_{tag}.ppm"), *extra],
+            f"supervised {tag}")
+        losses = {}
+        for line in out.splitlines():  # a re-run step: the later child's
+            if line.startswith('{"step"'):
+                d = json.loads(line)
+                losses[d["step"]] = d["loss"]
+        restarts = err.count("restarting with --resume")
+        path = " ".join(["cli optimize --kernel --supervise --steps 8",
+                         *extra, f"({tag}, children)"])
+        k1, k2 = counts["fused_whitted_live_plan"], counts["fused_train"]
+        launches["fused_whitted_live_plan"][path] = k1
+        launches["fused_train"][path] = k2
+        print(f"{path}: {dt:.2f} s wall, {restarts} restarts, {k1} live-plan "
+              f"and {k2} train launches in the children", flush=True)
+        assert sorted(losses) == list(range(8)), sorted(losses)
+        assert k1 > 0 and k2 > 0, f"{path}: K1 or K2 never launched"
+        runs[tag] = (losses, restarts)
+    (crashed, restarts), (clean, clean_restarts) = runs["crashed"], \
+        runs["uncrashed"]
+    rel = max(abs(crashed[i] - clean[i]) / abs(clean[i]) for i in range(8))
+    print(f"supervised --kernel: {restarts} restarts; losses against the "
+          f"uncrashed run's: max rel {rel:.3g} (limit {RESUME_RTOL})",
+          flush=True)
+    assert restarts >= 2 and clean_restarts == 0, (restarts, clean_restarts)
+    for i in range(8):
+        np.testing.assert_allclose(crashed[i], clean[i], rtol=RESUME_RTOL)
+
+    base = ["optimize", "--lr", "5e-2", "--log-every", "1", "--ckpt-every",
+            "2", "--out", os.path.join(OUT, "resume.ppm")]
+    ck, ck2 = os.path.join(OUT, "ck_resume"), os.path.join(OUT, "ck_straight")
+    for d in (ck, ck2):
+        shutil.rmtree(d, ignore_errors=True)
+    first, _, _ = cli_losses(base + ["--steps", "5", "--checkpoint", ck])
+    rest, text, _ = cli_losses(base + ["--steps", "8", "--resume",
+                                       "--checkpoint", ck])
+    straight, _, _ = cli_losses(base + ["--steps", "8", "--checkpoint", ck2])
+    assert "resumed from step 4" in text, text[-2000:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(first + rest, straight))
+    print(f"cli optimize (autograd) 5 steps, then --resume to 8, against 8 "
+          f"straight: max rel {rel:.3g} (limit {RESUME_RTOL})", flush=True)
+    assert len(first + rest) == len(straight) == 8
+    np.testing.assert_allclose(first + rest, straight, rtol=RESUME_RTOL)
+    return launches
+
+
+def tooling_phase(scene, cam, opts, tracer, frame, rays, frame_s, device):
+    """The tooling slice on the card → {kernel: {path: launches}}."""
+    os.makedirs(OUT, exist_ok=True)
+    t0 = time.perf_counter()
+    walk = tile_block_phase(scene, cam, opts, tracer, frame, rays, device)
+    walk.update(trace_phase())
+    walk.update(resilient_phase(frame, frame_s))
+    out = {"grid_walk": walk, **supervised_phase()}
+    print(f"tooling phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def main_frame(scene, cam, opts, tracer, device):
+    """The main path's config4 frame: `render_banded` with the grid walk, a
+    warm-up and FRAMES timed frames → (image, traced rays, median s, walk
+    launches per frame)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.renderer import render_banded
+
+    render_banded(scene, cam, opts, device=device, tracer=tracer,
+                  count_rays=True)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    W.launches = 0
+    frame_s = []
+    for _ in range(FRAMES):  # the host's share varies: report the median
+        t0 = time.perf_counter()
+        img, traced = render_banded(scene, cam, opts, device=device,
+                                    tracer=tracer, count_rays=True)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    assert W.launches % FRAMES == 0, W.launches
+    launches = W.launches // FRAMES
+    dt = sorted(frame_s)[FRAMES // 2]
+    rays = float(traced)
+    print(f"config4 {opts.width}x{opts.height} depth {opts.max_depth}: "
+          f"{dt:.4f} s (median of {FRAMES} frames; "
+          f"{', '.join(f'{t:.4f}' for t in frame_s)}), {rays:.6g} rays, "
+          f"{rays / dt:.6g} rays/s, {launches} walk launches per frame, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    assert launches > 0, "the main path never launched the walk kernel"
+    return img, traced, dt, launches
+
+
+def tooling_alone():
+    """The tooling phase on its own, after the kernel build and the main
+    path's config4 frame that it compares against."""
+    import torch
+
+    from raytracer_tpu_torch.kernels import build
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device available")
+    device = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    path, build_s = build.build_library()
+    build.load_library()
+    print(f"built {os.path.relpath(path)} in {build_s:.2f} s", flush=True)
+    scene, cam, opts = load_scene_cli("config4")
+    tracer = build_tracer(scene, "auto", device)
+    img, traced, dt, _ = main_frame(scene, cam, opts, tracer, device)
+    tooling_phase(scene, cam, opts, tracer, img, traced, dt, device)
+    print(card_line(), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2440,10 +2977,10 @@ def main() -> int:
     from raytracer_tpu_torch.kernels import build
     from raytracer_tpu_torch.models import presets
     from raytracer_tpu_torch.ops import fused as F
-    from raytracer_tpu_torch.ops import walk as W
     from raytracer_tpu_torch.renderer import render_banded
     from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2488,28 +3025,7 @@ def main() -> int:
     golden_phase("config7", 128, 128, device)
 
     _phase("main path: config4 1920x1080 depth 4")
-    render_banded(scene, cam, opts, device=device, tracer=tracer,
-                  count_rays=True)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    W.launches = 0
-    frame_s = []
-    for _ in range(FRAMES):  # the host's share varies: report the median
-        t0 = time.perf_counter()
-        img, traced = render_banded(scene, cam, opts, device=device,
-                                    tracer=tracer, count_rays=True)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t0)
-    assert W.launches % FRAMES == 0, W.launches
-    launches = W.launches // FRAMES
-    dt = sorted(frame_s)[FRAMES // 2]
-    rays = float(traced)
-    print(f"config4 {opts.width}x{opts.height} depth {opts.max_depth}: "
-          f"{dt:.4f} s (median of {FRAMES} frames; "
-          f"{', '.join(f'{t:.4f}' for t in frame_s)}), {rays:.6g} rays, "
-          f"{rays / dt:.6g} rays/s, {launches} walk launches per frame, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-    assert launches > 0, "the main path never launched the walk kernel"
+    img, traced, dt, launches = main_frame(scene, cam, opts, tracer, device)
     walk_frame = profile_ms(lambda: render_banded(
         scene, cam, opts, device=device, tracer=tracer), "grid_walk_kernel")
     print(f"walk kernel over one frame's {launches} launches (profiler): "
@@ -2517,6 +3033,11 @@ def main() -> int:
     assert tuple(img.shape) == (opts.height, opts.width, 3), img.shape
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+
+    _phase("tooling: cli render --tile-block, --trace, --resilient (config4 "
+           "1920x1080 d4); cli optimize --kernel --supervise, --resume "
+           "(config5 128x128)")
+    tool = tooling_phase(scene, cam, opts, tracer, img, traced, dt, device)
 
     _phase("main path: config4 1920x1080 d4 fwd+bwd (wavefront-planner "
            "replay)")
@@ -2641,7 +3162,8 @@ def main() -> int:
     k1_launches["plan"] = sum(k1_plan_paths.values())
     k1_live_paths = {"cli optimize --kernel --steps 30":
                      k1_launches["live_plan"],
-                     **md["fused_whitted_live_plan"]}
+                     **md["fused_whitted_live_plan"],
+                     **tool["fused_whitted_live_plan"]}
     k1_launches["live_plan"] = sum(k1_live_paths.values())
     k1_paths = {"image": {"cli render --tracer fused": k1_launches["image"]},
                 "live_plan": k1_live_paths, "plan": k1_plan_paths}
@@ -2678,12 +3200,14 @@ def main() -> int:
           f"step {train_step_ms:.4f} ms, plain {train_plain_ms:.3f} ms, bound "
           f"{train_bound:.4f} ms ({train_by})", flush=True)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "grid_walk", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/grid_walk.cu",
         "replaces": "raytracer_tpu/ops/pallas_walk.py:111",
         "launches": launches + k5_step + k5_c3 + k5_exact
-        + sum(md["grid_walk"].values()),
+        + sum(md["grid_walk"].values()) + sum(tool["grid_walk"].values()),
         "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": walk_bound, "bound_by": walk_by,
         "library_ms": None, "main_paths": {
@@ -2692,7 +3216,7 @@ def main() -> int:
             "cli render --config config3 --compact 0.5 (1024² d4 frame)":
                 k5_c3,
             "config4 1080p d4 frame on the exact grid": k5_exact,
-            **md["grid_walk"]}}] + [{
+            **md["grid_walk"], **tool["grid_walk"]}}] + [{
         "name": "fused_whitted" + ("" if m == "image" else "_" + m),
         "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_whitted.cu",
@@ -2705,12 +3229,13 @@ def main() -> int:
         "name": "fused_train", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/fused_train.cu",
         "replaces": "raytracer_tpu/ops/fused.py:326 (train)",
-        "launches": train_launches + sum(md["fused_train"].values()),
+        "launches": train_launches + sum(md["fused_train"].values())
+        + sum(tool["fused_train"].values()),
         "max_abs_err": train_err,
         "ms": train_ms, "plain_ms": train_plain_ms, "bound_ms": train_bound,
         "bound_by": train_by, "library_ms": None, "main_paths": {
             "cli optimize --kernel --steps 30": train_launches,
-            **md["fused_train"]}}] + [{
+            **md["fused_train"], **tool["fused_train"]}}] + [{
         "name": BRUTE[kind][1 + m], "route": "cuda", "source": BRUTE[kind][3],
         "replaces": f"{BRUTE[kind][4]}:{BRUTE[kind][5][m]}",
         "launches": brute_launches[kind][m],

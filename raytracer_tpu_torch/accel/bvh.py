@@ -188,8 +188,8 @@ def _build_numpy(verts, tris, leaf_size: int, sah: bool):
             hit.reshape(-1), miss.reshape(-1))
 
 
-def build_bvh(verts, tris, leaf_size: int = 8, sah: bool = False,
-              device="cpu") -> BVHData:
+def build_bvh(verts, tris, leaf_size: int = 8, sah: bool = False, *,
+              device) -> BVHData:
     """Host-side build from concrete arrays; tensors land on `device`.
 
     Median split on the widest centroid axis (the native build when the

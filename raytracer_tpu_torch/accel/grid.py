@@ -50,7 +50,7 @@ class GridData:
     n_tris: int              # sentinel id (= index of the degenerate pad tri)
 
 
-def build_grid(verts, tris, capacity: int = CAPACITY, device="cpu",
+def build_grid(verts, tris, capacity: int = CAPACITY, *, device,
                exact: bool = False) -> GridData:
     """Host-side grid build from concrete arrays; tensors land on `device`.
     Cells that list more than `capacity` triangles spill into `overflow`.

@@ -17,13 +17,22 @@
   python -m raytracer_tpu_torch.cli optimize --kernel --steps 30 --out r.png
   python -m raytracer_tpu_torch.cli optimize --preset mesh --steps 30 \\
       --out m.png
+  python -m raytracer_tpu_torch.cli render --config config4 \\
+      --tile-block 270x480 --trace traces/ --out c4.png
+  python -m raytracer_tpu_torch.cli render --config config4 --resilient \\
+      --out c4.png
+  python -m raytracer_tpu_torch.cli optimize --kernel --steps 200 \\
+      --checkpoint ck/ --supervise --out r.png
 
 `--device` defaults to `cuda`; on a machine without a GPU that fails rather
 than running on the CPU.
 """
 
 import argparse
+import contextlib
 import dataclasses
+import os
+import sys
 import time
 
 _CONFIGS = ["config1", "config2", "config3", "config4", "config7"]
@@ -39,16 +48,6 @@ def _save(path: str, img):
     print("wrote", path)
 
 
-def _device(name: str):
-    import torch
-
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: no CUDA device is available "
-                         "(pass --device cpu to render on the CPU)")
-    return dev
-
-
 def _sync(device):
     import torch
 
@@ -56,20 +55,97 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def cmd_render(args):
-    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+def _tile_block(text: str):
+    """"BHxBW" → (bh, bw)."""
+    try:
+        bh, bw = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"want BHxBW, got {text!r}") from None
+    if bh < 1 or bw < 1:
+        raise argparse.ArgumentTypeError(f"want positive sizes, got {text!r}")
+    return bh, bw
 
-    device = _device(args.device)
-    scene, cam, opts = load_scene_cli(args.config if not args.scene else "",
-                                      args.scene, args.width, args.height,
-                                      args.max_depth)
-    if args.scene:
-        args.config = args.scene
+
+def _row_span(text: str):
+    """"A-B" → (a, b): image rows [a, b)."""
+    try:
+        a, b = (int(x) for x in text.split("-"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"want A-B, got {text!r}") from None
+    return a, b
+
+
+def _render_resilient(args, kind: str):
+    """`render --resilient`: the frame through band worker processes
+    (utils/elastic.py); this process touches no device."""
+    from raytracer_tpu_torch.utils.elastic import Faults, render_resilient
+
+    if args.trace:
+        raise SystemExit("--resilient does not support --trace "
+                         "(workers are separate processes)")
+    if kind == "fused":
+        raise SystemExit("--resilient does not support --tracer fused "
+                         "(the fused megakernel replaces the banded "
+                         "renderer the workers run)")
+    t0 = time.perf_counter()
+    img, rep = render_resilient(
+        config=args.config if not args.scene else "", scene_path=args.scene,
+        width=args.width, height=args.height, max_depth=args.max_depth,
+        tracer=kind, ssaa=args.ssaa, min_rows=args.min_rows,
+        device=args.device,
+        faults=Faults(countdown_file=args.fault_countdown,
+                      rows=args.fault_rows))
+    dt = time.perf_counter() - t0
+    name = args.scene or args.config
+    aa = f" ssaa={args.ssaa}" if args.ssaa > 1 else ""
+    print(f"{name}: {img.shape[1]}x{img.shape[0]}{aa} resilient on "
+          f"{args.device} in {dt:.2f}s — {rep.bands_ok} bands ok, "
+          f"{rep.bands_failed} failed, {rep.retries} retries, "
+          f"{rep.rays:.3g} rays")
+    if rep.failed_rows:
+        print("zero-filled rows:", rep.failed_rows)
+    _save(args.out, img)
+
+
+def cmd_render(args):
+    from raytracer_tpu_torch.utils.hostload import (build_tracer, cli_device,
+                                                    load_scene_cli)
+
     s = args.ssaa
     if s < 1:
         raise SystemExit(f"--ssaa must be ≥ 1, got {s}")
+    if (args.fault_countdown or args.fault_rows) and not args.resilient:
+        raise SystemExit("--fault-countdown and --fault-rows drill the band "
+                         "workers of --resilient")
+    kind = "grid" if args.grid else args.tracer
+    if args.resilient:
+        return _render_resilient(args, kind)
+    device = cli_device(args.device)
+    scene, cam, opts = load_scene_cli(args.config if not args.scene else "",
+                                      args.scene, args.width, args.height,
+                                      args.max_depth)
+    if args.tile_block:
+        bh, bw = args.tile_block
+        opts = dataclasses.replace(opts, tile_rays=bh * bw,
+                                   tile_block=(bh, bw))
+    if args.scene:
+        args.config = args.scene
     aa = f" ssaa={s}" if s > 1 else ""
-    if args.tracer == "fused":
+
+    @contextlib.contextmanager
+    def traced():
+        """The render's context: a profiler trace with --trace."""
+        if not args.trace:
+            yield
+            return
+        from raytracer_tpu_torch.utils.profiling import xprof_trace
+
+        with xprof_trace(args.trace, device=device):
+            yield
+        print(f"device trace written to {args.trace} (*.pt.trace.json: open "
+              "in https://ui.perfetto.dev or chrome://tracing)")
+
+    if kind == "fused":
         from raytracer_tpu_torch.ops import fused
 
         if not fused.supported(scene):
@@ -80,11 +156,12 @@ def cmd_render(args):
                                  height=opts.height * s) if s > 1 else opts
         t0 = time.perf_counter()
         fw = fused.FusedWhitted(scene, cam, hi, device=device)
-        img = fw.render()
-        if s > 1:
-            img = img.reshape(opts.height, s, opts.width, s, 3).mean(
-                dim=(1, 3))
-        _sync(device)
+        with traced():
+            img = fw.render()
+            if s > 1:
+                img = img.reshape(opts.height, s, opts.width, s, 3).mean(
+                    dim=(1, 3))
+            _sync(device)
         img = img.cpu().numpy()
         dt = time.perf_counter() - t0
         print(f"{args.config}: {opts.width}x{opts.height} "
@@ -99,18 +176,20 @@ def cmd_render(args):
     if args.compact:
         opts = dataclasses.replace(opts, compact_cap=args.compact)
     t0 = time.perf_counter()
-    tracer = build_tracer(scene, args.tracer, device)
-    if s > 1:
-        img, traced, *dropped = render_ssaa(
-            scene, cam, opts, device=device, factor=s, tracer=tracer,
-            count_rays=True)
-    else:
-        img, traced, *dropped = render_banded(
-            scene, cam, opts, device=device, tracer=tracer, count_rays=True)
-    _sync(device)
+    tracer = build_tracer(scene, kind, device)
+    with traced():
+        if s > 1:
+            img, rays, *dropped = render_ssaa(
+                scene, cam, opts, device=device, factor=s, tracer=tracer,
+                count_rays=True)
+        else:
+            img, rays, *dropped = render_banded(
+                scene, cam, opts, device=device, tracer=tracer,
+                count_rays=True)
+        _sync(device)
     img = img.cpu().numpy()
     dt = time.perf_counter() - t0
-    rays = float(traced)
+    rays = float(rays)
     if use_compact(scene, opts) and float(dropped[0]) > 0:
         print(f"WARNING: compaction dropped {float(dropped[0]):.0f} alive "
               "lanes — image is missing radiance; raise --compact")
@@ -123,7 +202,7 @@ def cmd_render(args):
 def _spheres_trainer(args, device):
     """config5: recover the two spheres' centers and albedos with Adam →
     (params {name: leaf}, step() → loss, params → final scene, report,
-    camera, opts)."""
+    camera, opts, {name: the stateful objects a checkpoint saves})."""
     import numpy as np
     import torch
 
@@ -202,7 +281,8 @@ def _spheres_trainer(args, device):
         print("recovered centers:\n", c)
         print("recovered albedos:\n", a)
 
-    return params, step, lambda p: apply_params(dinit, p), report, cam, opts
+    return (params, step, lambda p: apply_params(dinit, p), report, cam, opts,
+            {"optimizer": opt})
 
 
 def _mesh_trainer(args, device):
@@ -261,7 +341,65 @@ def _mesh_trainer(args, device):
             print(f"{tag}: vertex L1 visible {err[vis].mean():.5f} "
                   f"hidden {err[~vis].mean():.5f}")
 
-    return params, step, lambda p: apply_params(dinit, p), report, cam, opts
+    # the schedule's step count is the decay's: a checkpoint keeps it
+    return (params, step, lambda p: apply_params(dinit, p), report, cam, opts,
+            {"optimizer": opt, "scheduler": sched})
+
+
+def _supervise_argv(args) -> list:
+    """The supervised child's command: this optimize run without
+    `--supervise`, every trainer flag forwarded."""
+    cmd = [sys.executable, "-m", "raytracer_tpu_torch.cli", "optimize",
+           "--preset", args.preset, "--steps", str(args.steps),
+           "--out", os.path.abspath(args.out),
+           "--checkpoint", os.path.abspath(args.checkpoint),
+           "--ckpt-every", str(args.ckpt_every),
+           "--log-every", str(args.log_every), "--device", args.device]
+    if args.lr is not None:
+        cmd += ["--lr", repr(args.lr)]
+    if args.plan:
+        cmd += ["--plan"]
+    if args.kernel:
+        cmd += ["--kernel"]
+    if args.fault_after_steps:
+        cmd += ["--fault-after-steps", str(args.fault_after_steps)]
+    return cmd
+
+
+def _supervise_optimize(args):
+    """Auto-restart supervisor: run the checkpointed optimize loop as a
+    child process, re-launched with --resume after every crash, until it
+    completes or --max-restarts is spent. Resume is exact (the checkpoint
+    holds the parameters and the optimizer's and schedule's state), so a
+    supervised run that crashed ends where an uncrashed one does. A child
+    that cannot start (no CUDA device, bad arguments) is not restarted.
+    There is no wait before a restart: a CUDA context ends with its
+    process."""
+    import subprocess
+
+    from raytracer_tpu_torch.utils.hostload import (NO_DEVICE_EXIT, ROOT,
+                                                    USAGE_EXIT)
+
+    if not args.checkpoint:
+        raise SystemExit("--supervise requires --checkpoint")
+    base = _supervise_argv(args)
+    for attempt in range(args.max_restarts + 1):
+        cmd = base + (["--resume"] if (attempt or args.resume) else [])
+        r = subprocess.run(cmd, cwd=ROOT)
+        if r.returncode == 0:
+            if attempt:
+                print(f"# supervised optimize finished after {attempt} "
+                      f"restart(s)", file=sys.stderr)
+            return
+        if r.returncode in (NO_DEVICE_EXIT, USAGE_EXIT):
+            raise SystemExit(f"supervised optimize: the child cannot run "
+                             f"(exit {r.returncode}); not restarting")
+        if attempt == args.max_restarts:
+            break
+        print(f"# optimize child exit {r.returncode}; restarting with "
+              f"--resume ({attempt + 1}/{args.max_restarts})",
+              file=sys.stderr, flush=True)
+    raise SystemExit("supervised optimize: restart budget exhausted")
 
 
 def cmd_optimize(args):
@@ -276,12 +414,20 @@ def cmd_optimize(args):
       (`FusedWhitted.plan_value_and_grad`), no autograd;
     - `--preset mesh` (config6): vertex displacements through the wavefront
       with differentiable smooth normals.
+
+    `--checkpoint DIR` saves the run every `--ckpt-every` steps and at the
+    last (utils/checkpoint.py) and `--resume` continues from the newest
+    checkpoint there. `--supervise` runs the loop as a child process that
+    is restarted with `--resume` after a crash; `--fault-after-steps N`
+    makes each process exit with code 43 after N steps (a drill).
     """
     import json
 
     import torch
 
     from raytracer_tpu_torch.renderer import render
+    from raytracer_tpu_torch.utils import checkpoint
+    from raytracer_tpu_torch.utils.hostload import cli_device
 
     if args.preset == "mesh" and (args.kernel or args.plan):
         raise SystemExit("--kernel and --plan train the spheres preset "
@@ -289,13 +435,33 @@ def cmd_optimize(args):
                          "the wavefront")
     if args.kernel and args.plan:
         raise SystemExit("--kernel and --plan are two trainers: pick one")
-    device = _device(args.device)
+    if args.ckpt_every < 1:
+        raise SystemExit(f"--ckpt-every must be ≥ 1, got {args.ckpt_every}")
+    if args.supervise:
+        return _supervise_optimize(args)
+    device = cli_device(args.device)
     make = _mesh_trainer if args.preset == "mesh" else _spheres_trainer
-    params, step, final, report, cam, opts = make(args, device)
-    for i in range(args.steps):
+    params, step, final, report, cam, opts, states = make(args, device)
+    start = 0
+    if args.checkpoint and args.resume:
+        found = checkpoint.latest(args.checkpoint)
+        if found is not None:
+            last = checkpoint.restore(found[1], params, states, device)
+            start = last + 1
+            print(f"resumed from step {last} at "
+                  f"{os.path.abspath(args.checkpoint)}")
+    for done, i in enumerate(range(start, args.steps)):
+        if args.fault_after_steps and done >= args.fault_after_steps:
+            print(f"# injected fault after {done} steps (process step {i})",
+                  file=sys.stderr, flush=True)
+            sys.stdout.flush()  # os._exit drops buffered output
+            os._exit(43)
         val = step()
         if i % args.log_every == 0 or i == args.steps - 1:
             print(json.dumps({"step": i, "loss": float(val)}))
+        if args.checkpoint and (i % args.ckpt_every == 0
+                                or i == args.steps - 1):
+            checkpoint.save(args.checkpoint, i, params, states)
     with torch.no_grad():
         img, _ = render(final(params), cam, opts, device=device)
     _sync(device)
@@ -326,11 +492,15 @@ def main(argv=None):
     pr.add_argument("--width", type=int, default=0)
     pr.add_argument("--height", type=int, default=0)
     pr.add_argument("--max-depth", type=int, default=None)
+    pr.add_argument("--grid", action="store_true",
+                    help="(deprecated) alias for --tracer grid")
     pr.add_argument("--tracer", default="auto",
-                    choices=["auto", "none", "grid", "bvh", "pallas", "mat",
-                             "fused"],
+                    choices=["auto", "none", "grid", "bvh", "pallas",
+                             "grid-pallas", "mat", "fused"],
                     help="mesh winner-search backend (auto = grid when the "
-                         "scene has triangles; none = dense search; bvh = "
+                         "scene has triangles; none = dense search; grid = "
+                         "the uniform grid's walk kernel (grid-pallas: the "
+                         "same); bvh = "
                          "threaded BVH walk (accel/bvh.py); pallas = "
                          "brute-force kernel over all triangles "
                          "(ops/pallas_trace.py); mat = linear-expansion "
@@ -345,6 +515,26 @@ def main(argv=None):
     pr.add_argument("--ssaa", type=int, default=1,
                     help="supersampling factor: trace an N× frame and "
                          "box-average N² subsamples per pixel")
+    pr.add_argument("--trace", default="",
+                    help="write a torch.profiler trace of the render to "
+                         "this dir (*.pt.trace.json; Perfetto or "
+                         "chrome://tracing)")
+    pr.add_argument("--tile-block", default=None, type=_tile_block,
+                    help="scan tiles as BHxBW screen blocks (sets tile_rays"
+                         "=BH*BW); bit-identical images")
+    pr.add_argument("--resilient", action="store_true",
+                    help="elastic mode: render bands in re-dispatchable "
+                         "worker processes with split-retry "
+                         "(utils/elastic.py)")
+    pr.add_argument("--min-rows", type=int, default=8,
+                    help="resilient mode: smallest band split before a "
+                         "piece is declared failed and zero-filled")
+    pr.add_argument("--fault-countdown", default="",
+                    help="resilient drill: band workers exit 41 while the "
+                         "count in this file is > 0 (each decrements it)")
+    pr.add_argument("--fault-rows", default=None, type=_row_span,
+                    help="resilient drill: band workers that meet image "
+                         "rows A-B exit 42")
     pr.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     pr.set_defaults(fn=cmd_render)
@@ -359,6 +549,11 @@ def main(argv=None):
                     help="Adam learning rate (default 1e-2; mesh 2e-3, "
                          "halved every 80 steps)")
     po.add_argument("--out", default="recovered.png")
+    po.add_argument("--checkpoint", default="",
+                    help="checkpoint dir (enables saving)")
+    po.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint")
+    po.add_argument("--ckpt-every", type=int, default=25)
     po.add_argument("--log-every", type=int, default=10)
     po.add_argument("--plan", action="store_true",
                     help="replay training step: the fused forward records "
@@ -368,6 +563,14 @@ def main(argv=None):
                     help="fused training step: the forward kernel records "
                          "the plan, the train kernel returns the loss and "
                          "the analytic gradients (spheres preset)")
+    po.add_argument("--supervise", action="store_true",
+                    help="elastic mode: run the loop as a child process and "
+                         "restart it with --resume after crashes (requires "
+                         "--checkpoint)")
+    po.add_argument("--max-restarts", type=int, default=20)
+    po.add_argument("--fault-after-steps", type=int, default=0,
+                    help="drill: each process exits with code 43 after N "
+                         "steps")
     po.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     po.set_defaults(fn=cmd_optimize)

@@ -90,7 +90,7 @@ def test_build_bvh_equals_reference(mesh_scene, monkeypatch, builder):
     leaf = 1 if builder == "leaf1" else 8
     want = ref_build_bvh(verts, tris, leaf_size=leaf, pregather=False,
                          sah=sah)
-    got = build_bvh(verts, tris, leaf_size=leaf, sah=sah)
+    got = build_bvh(verts, tris, leaf_size=leaf, sah=sah, device="cpu")
     assert (got.n_nodes, got.capacity, got.n_tris) == (
         want.n_nodes, want.capacity, want.n_tris)
     for name in ("aabb6", "links2", "leaf_tris"):
@@ -101,7 +101,7 @@ def test_build_bvh_equals_reference(mesh_scene, monkeypatch, builder):
 
 def test_bvh_build_covers_all_tris(mesh_scene):
     verts, tris = _mesh(mesh_scene[0])
-    b = build_bvh(verts, tris, leaf_size=8)
+    b = build_bvh(verts, tris, leaf_size=8, device="cpu")
     t = tris.shape[0]
     assert set(b.leaf_tris.reshape(-1).tolist()) - {t} == set(range(t))
     lk = b.links2.numpy()
@@ -115,7 +115,7 @@ def test_bvh_build_covers_all_tris(mesh_scene):
 def test_bvh_walk_unit_cases():
     verts = np.array([[-1, -1, -3], [1, -1, -3], [0, 1, -3]], np.float32)
     tris = np.array([[0, 1, 2]], np.int32)
-    b = build_bvh(verts, tris, leaf_size=4)
+    b = build_bvh(verts, tris, leaf_size=4, device="cpu")
     orig = torch.tensor([[0.0, 0.0, 0.0],    # hit head-on
                          [0.0, 0.0, -5.0],   # behind, shooting away
                          [5.0, 5.0, 0.0],    # misses the root box
@@ -284,8 +284,8 @@ def test_bvh_sah_agrees_with_median(mesh_scene):
     """SAH tree: no more nodes than the median tree, every triangle listed,
     the same hits."""
     verts, tris = _mesh(mesh_scene[0])
-    bm = build_bvh(verts, tris, leaf_size=8, sah=False)
-    bs = build_bvh(verts, tris, leaf_size=8, sah=True)
+    bm = build_bvh(verts, tris, leaf_size=8, sah=False, device="cpu")
+    bs = build_bvh(verts, tris, leaf_size=8, sah=True, device="cpu")
     assert bs.n_nodes <= bm.n_nodes
     t = tris.shape[0]
     leaf = bs.leaf_tris.numpy()
@@ -306,7 +306,7 @@ def test_bvh_sah_degenerate_centroids(builder):
     v = np.array([[0, 0, -3], [1, 0, -3], [0, 1, -3]], np.float32)
     verts = np.concatenate([v] * 17)
     tris = np.arange(51).reshape(17, 3).astype(np.int32)
-    b = build_bvh(verts, tris, leaf_size=2, sah=True)
+    b = build_bvh(verts, tris, leaf_size=2, sah=True, device="cpu")
     leaf = b.leaf_tris.numpy()
     assert set(leaf[leaf != 17].tolist()) == set(range(17))
     if builder == "reference":

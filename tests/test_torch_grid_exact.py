@@ -96,7 +96,8 @@ def test_build_grid_exact_equals_reference(mesh_case, monkeypatch, builder,
         monkeypatch.setattr(ref_native, "native_lib", lambda: None)
     want = ref_build_grid(verts, tris, capacity=capacity, density=0.125,
                           exact=True)
-    got = build_grid(verts, tris, capacity=capacity, exact=True)
+    got = build_grid(verts, tris, capacity=capacity, exact=True,
+                     device="cpu")
     assert (got.res, got.capacity, got.n_tris) == (want.res, want.capacity,
                                                    want.n_tris)
     for f in GRID_FIELDS:
@@ -110,8 +111,8 @@ def test_exact_binning_subset_and_coverage(mesh_case):
     their spill), every triangle stays listed, and occupancy falls."""
     verts, tris = _mesh(mesh_case[0])
     t = tris.shape[0]
-    ga = build_grid(verts, tris, capacity=16, exact=False)
-    gx = build_grid(verts, tris, capacity=16, exact=True)
+    ga = build_grid(verts, tris, capacity=16, exact=False, device="cpu")
+    gx = build_grid(verts, tris, capacity=16, exact=True, device="cpu")
     ct_a, ct_x = ga.cell_tris.numpy(), gx.cell_tris.numpy()
     spill = set(ga.overflow.tolist())
     for c in range(ct_a.shape[0]):
