@@ -93,6 +93,21 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   of child processes are counted through a `sitecustomize.py` written to
   smoke_out/counthook/; alone: `tooling_alone()`.
 
+- the culled sweep (`accel/cull.py`, csrc/cull_sweep.cu) on the main
+  path's scene and grid frame at config4 1920×1080 d4 in 32×160 screen
+  blocks, cap 1024 (the reference's hybrid rung): `cull_audit` (thin/fat
+  tiles, the largest counts, its time); the sweep kernel on the hybrid
+  frame's calls (the thin tiles' d0 nearest and each light's shadows) bit
+  for bit against its plain version and equal to K5 on the same rays, its
+  time beside its bound, the plain version's and K5's; `HybridBand` 5
+  frames in turns with the grid frame (image within 2e-7, rays, two runs);
+  `render_partitioned` bit-equal to it; the hybrid fwd+bwd step
+  (`hybrid_image` under autograd) against the grid step (loss rtol 1e-6,
+  gradients rtol 1e-4, atol 1e-7), its time and peak memory;
+  `render(tracer=CullTracer)` at 480×270 against the grid render; the
+  overflow drill at 192×108, cap 128 (the audit flags it, the image
+  diverges). Alone: `cull_alone()`.
+
 Before the kernels, raygen's pixel coordinates at 1920×1080 on the card are
 held to the CPU's bit for bit.
 
@@ -100,7 +115,8 @@ A JSON line lists each kernel's launches on its main paths (per path under
 "main_paths" for K5, K1, K2 and the BVH walk), error, times and
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
 or bytes over 3.35 TB/s, whichever is larger, for the work of all the
-frames a kernel's times cover); K1 has one entry per mode. Any failure
+frames a kernel's times cover); K1 has one entry per mode, the culled
+sweep one with its paths. Any failure
 raises; the last
 line is `{"ok": true, "device": {...}}` only on success. Exits non-zero
 without a result when no CUDA device is available.
@@ -2155,6 +2171,355 @@ def exact_grid_phase(scene, cam, opts, box, box_img, device):
     return k5
 
 
+# the culled sweep (accel/cull.py, csrc/cull_sweep.cu): the reference's
+# hybrid rung, HybridBand at the config4 preset's 5120-ray 32x160 screen
+# blocks (raytracer_tpu/models/presets.py:187), cap 1024
+CULL_CAP = 1024
+CULL_BLOCK = (32, 160)
+CULL_SMALL = (480, 270)       # the per-call form: ~70 ms of dispatch a tile
+CULL_DRILL = (192, 108, 128)  # the overflow drill: width, height, cap
+CULL_STEPS = 3                # timed hybrid steps (CUDA events) after a warm-up
+CULL_IMG_MAX = 2e-7           # culled == grid to 1 ulp (tests/test_cull.py)
+CULL_LOSS_RTOL, CULL_GRAD_RTOL, CULL_GRAD_ATOL = 1e-6, 1e-4, 1e-7
+CULL_DIVERGE = 1e-3           # an overflowing cap's image moves past this
+# per test: Möller–Trumbore (test_row, 46 fp32 operations); bytes per live
+# lane: orig + dir in (24), any-hit max_t in (4); per lane: active in (1),
+# nearest t + idx out (8) or an any-hit bool out (1); per list its count
+# (4) and its ids (4 each, up to cap); each listed row once, 40 bytes
+# (v0|e1|e2|id)
+CULL_OPS = 46
+CULL_LIVE_BYTES = {"nearest": 24, "occluded": 28}
+CULL_LANE_BYTES = {"nearest": 9, "occluded": 2}
+CULL_ROW_BYTES = 40
+
+
+def cull_work(calls):
+    """Tests, operations and bytes of recorded sweep calls (the plain
+    version counts the tests) → (tests, ops, bytes)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cull_sweep as CS
+
+    tests = nbytes = 0.0
+    for name, args in calls:
+        stats = {}
+        rays, ids, counts, table, tile, t_min, act, *mx = args
+        CS.cull_sweep_plain(rays, ids, counts, table, tile, t_min, act, *mx,
+                            stats=stats)
+        tests += stats["tests"]
+        lens = torch.clamp(counts, max=ids.shape[1])
+        slot = torch.arange(ids.shape[1], device=ids.device)
+        listed = ids[slot[None, :] < lens[:, None]]
+        live = rays[0].shape[0] if act is None else int(act.sum())
+        nbytes += (live * CULL_LIVE_BYTES[name]
+                   + rays[0].shape[0] * CULL_LANE_BYTES[name]
+                   + 4 * counts.shape[0] + 4 * float(lens.sum())
+                   + CULL_ROW_BYTES * torch.unique(listed).numel())
+    return tests, CULL_OPS * tests, nbytes
+
+
+def cull_vs_walk(name, args, grid):
+    """One recorded sweep call: the kernel against its plain version (bit
+    for bit) and against K5 on the same rays and active lanes (the hits,
+    or the occlusion bits) → (max |Δt| kernel vs plain, K5 args)."""
+    import torch
+
+    from raytracer_tpu_torch.accel.grid import walk_init
+    from raytracer_tpu_torch.ops import cull_sweep as CS
+    from raytracer_tpu_torch.ops import walk as W
+
+    rays, ids, counts, table, tile, t_min, act, *mx = args
+    got = CS.cull_sweep_cuda(*args)
+    want = CS.cull_sweep_plain(*args)
+    mx = mx[0] if mx else None
+    state = walk_init(grid._grid, *rays, t_min, act)
+    walk = W.grid_walk_cuda(grid._grid, grid._table, *rays, state, t_min, mx)
+    torch.cuda.synchronize()
+    n_live = int(act.sum())
+    if mx is not None:
+        same = torch.equal(got, want)
+        k5_diff = int((got != (walk[0] < mx)).sum())
+        msg = (f"cull {name}: {rays[0].shape[0]} lanes in {ids.shape[0]} "
+               f"lists, {n_live} live, {int(got.sum())} occluded; kernel "
+               f"bit-equal to plain: {same}; occlusion bits off K5's: "
+               f"{k5_diff}")
+        err = 0.0
+    else:
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        fin = torch.isfinite(want[0])
+        err = float((got[0][fin] - want[0][fin]).abs().max()) if bool(
+            fin.any()) else 0.0
+        hit = torch.isfinite(walk[0])
+        k5_diff = int((~torch.eq(got[0], walk[0])).sum()
+                      + (got[1][hit] != walk[1][hit]).sum())
+        msg = (f"cull {name}: {rays[0].shape[0]} lanes in {ids.shape[0]} "
+               f"lists, {n_live} live, {int(fin.sum())} hits; kernel "
+               f"bit-equal to plain: {same}; lanes whose t or hit id is off "
+               f"K5's: {k5_diff}")
+    print(msg, flush=True)
+    assert same and k5_diff == 0, msg
+    return err, (grid._grid, grid._table, *rays, state, t_min, mx)
+
+
+def assert_vg_close(tag, v, g, want_v, want_g):
+    """The reference's gradient standard (tests/test_cull.py): loss rtol
+    1e-6, each gradient rtol 1e-4, atol 1e-7 elementwise."""
+    import torch
+
+    d_loss = abs(float(v) - float(want_v)) / abs(float(want_v))
+    bad = {k: int((~torch.isclose(g[k], want_g[k], rtol=CULL_GRAD_RTOL,
+                                  atol=CULL_GRAD_ATOL)).sum()) for k in want_g}
+    msg = (f"{tag}: loss {float(v):.9g} vs {float(want_v):.9g} (rel "
+           f"{d_loss:.3g}, limit {CULL_LOSS_RTOL}); gradient entries outside "
+           f"rtol {CULL_GRAD_RTOL}, atol {CULL_GRAD_ATOL}: {bad}")
+    print(msg, flush=True)
+    assert d_loss <= CULL_LOSS_RTOL and not any(bad.values()), msg
+
+
+def cull_counts(reset: bool = False) -> tuple:
+    """(culled sweep, K5) launches since the last reset."""
+    from raytracer_tpu_torch.ops import cull_sweep as CS
+    from raytracer_tpu_torch.ops import walk as W
+
+    if reset:
+        CS.launches = W.launches = 0
+    return CS.launches, W.launches
+
+
+def cull_phase(scene, cam, opts, grid, frame, traced, device):
+    """The culled sweep on the main path's scene at config4 1920×1080 d4 in
+    32×160 blocks, cap 1024: the audit; the sweep kernel vs its plain
+    version and vs K5 on the hybrid frame's calls, times and bound;
+    `HybridBand` 5 frames in turns with the grid frame (image, rays, two
+    runs); `render_partitioned`; the hybrid fwd+bwd step against the grid
+    step; the per-call form at 480×270; the overflow drill at 192×108, cap
+    128 → the JSON entry's numbers."""
+    import dataclasses
+
+    import torch
+
+    from raytracer_tpu_torch.accel.cull import (CullTracer, HybridBand,
+                                                cull_audit, render_partitioned,
+                                                thin_tiles)
+    from raytracer_tpu_torch.ops import cull_sweep as CS
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.renderer import (render_banded, render_rays,
+                                              value_and_grad_bands,
+                                              value_and_grad_banded)
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    bh, bw = CULL_BLOCK
+    block = dataclasses.replace(opts, tile_rays=bh * bw, tile_block=CULL_BLOCK)
+    launches = {}
+
+    # 1. the audit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aud = cull_audit(scene, cam, block, device=device, cap=CULL_CAP,
+                     inner=grid)
+    audit_ms = (time.perf_counter() - t0) * 1e3
+    shadow = aud["shadow"].max(axis=1)
+    thin = thin_tiles(aud)
+    size = f"{opts.width}x{opts.height} d{opts.max_depth}"
+    print(f"cull_audit config4 {size}, {bh}x{bw} blocks, cap "
+          f"{aud['cap']}: {aud['n_tiles']} tiles of {aud['tile']} lanes, "
+          f"{int(thin.sum())} thin, {int((~thin).sum())} fat (one band); max "
+          f"d0 count {int(aud['d0'].max())}, max shadow bound "
+          f"{int(shadow.max())}; d0 counts of thin tiles: mean "
+          f"{float(aud['d0'][thin].mean()):.1f}, empty "
+          f"{int((aud['d0'][thin] == 0).sum())}; audit {audit_ms:.2f} ms "
+          f"(host clock, grid build excluded, {card})", flush=True)
+    assert int(thin.sum()) > 0, "no thin tile: the sweep would never run"
+    assert (aud["d0"][thin] <= CULL_CAP).all() and (
+        aud["shadow"][thin] <= CULL_CAP).all()
+
+    # 2. the kernel against its plain version and K5, on the calls of the
+    # hybrid frame (the thin tiles' d0 nearest and each light's shadows)
+    t0 = time.perf_counter()
+    band = HybridBand(scene, cam, block, device=device, inner=grid,
+                      cap=CULL_CAP)
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t0
+    assert band.n_thin == int(thin.sum()) and band.n_tiles == aud["n_tiles"]
+    with recording(CS, ("cull_nearest", "cull_occluded")) as rec:
+        cull_counts(reset=True)
+        img = band()
+        torch.cuda.synchronize()
+        frame_launches = cull_counts()
+    calls = ([("nearest", a) for a in rec["cull_nearest"]]
+             + [("occluded", a) for a in rec["cull_occluded"]])
+    assert len(calls) == frame_launches[0] == 1 + scene.lights.count, (
+        len(calls), frame_launches)
+    err = 0.0
+    walks = []
+    for name, args in calls:
+        e, w_args = cull_vs_walk(name, args, grid)
+        err = max(err, e)
+        walks.append(w_args)
+    ms = cuda_ms(lambda: [CS.cull_sweep_cuda(*a) for _, a in calls], 5)
+    plain_ms = cuda_ms(lambda: [CS.cull_sweep_plain(*a) for _, a in calls], 1,
+                       warmup=False)
+    k5_ms = cuda_ms(lambda: [W.grid_walk_cuda(*a) for a in walks], 5)
+    tests, ops, nbytes = cull_work(calls)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    # the whole search call, culling included, against the grid tracer's
+    rays = calls[0][1][0]
+    act = calls[0][1][6]
+    fresh = band.cull.fresh
+    call_ms = cuda_ms(lambda: fresh().nearest(*rays, block.t_min,
+                                              block.tri_chunk, act), 5)
+    grid_call_ms = cuda_ms(lambda: grid.nearest(*rays, block.t_min,
+                                                block.tri_chunk, act), 5)
+    print(f"cull_sweep over the hybrid frame's {len(calls)} launches (d0 "
+          f"nearest + {scene.lights.count} shadow sets of "
+          f"{rays[0].shape[0]} lanes): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms; {tests:.6g} tests (Σ min(count, cap) × live "
+          f"lanes), {ops:.6g} ops, {nbytes:.6g} bytes → bound {b_ms:.4f} ms "
+          f"({b_by}), {b_ms / ms:.1%} of bound; K5 on the same rays "
+          f"{k5_ms:.4f} ms; the d0 nearest call whole (segments, lists, "
+          f"kernel, spheres/planes) {call_ms:.4f} ms against the grid "
+          f"tracer's {grid_call_ms:.4f} ms (CUDA events; {card})",
+          flush=True)
+
+    # 3. HybridBand: frames in turns with the main-path grid frame
+    (grid_s, grid_all), (hyb_s, hyb_all) = in_turns([
+        lambda: render_banded(scene, cam, opts, device=device, tracer=grid),
+        band], n=FRAMES)
+    d_img = float((img - frame).abs().max())
+    img2, traced_h = band.image(count_rays=True)
+    # padding lanes (the partial block row) trace the dummy direction too
+    n_pad = band.n_tiles * band.thin_dirs.shape[1] - band.n_pix
+    pad_traced = 0.0
+    if n_pad:
+        dummy = torch.tensor([[0.0, 0.0, -1.0]], device=device)
+        pad_traced = float(render_rays(
+            band.scene, band.orig[:1].expand(n_pad, 3), dummy.expand(n_pad, 3),
+            opts, count_rays=True, tracer=grid)[1])
+    same = torch.equal(img2, img)
+    msg = (f"HybridBand config4 {size} ({band.n_thin} thin / "
+           f"{band.n_tiles} tiles): {hyb_s:.4f} s median of {FRAMES} "
+           f"({', '.join(f'{t:.4f}' for t in hyb_all)}) in turns with the "
+           f"grid frame's {grid_s:.4f} s ({', '.join(f'{t:.4f}' for t in grid_all)}); "
+           f"build (audit + partition) {band_s:.3f} s; per frame "
+           f"{frame_launches[0]} sweep + {frame_launches[1]} K5 launches; vs "
+           f"the grid frame max |d| {d_img:.3g} (limit {CULL_IMG_MAX}); rays "
+           f"{float(traced_h):.9g} = the frame's {float(traced):.9g} + "
+           f"{n_pad} padding lanes' {pad_traced:.9g}; two runs bit-equal: "
+           f"{same} ({card})")
+    print(msg, flush=True)
+    assert d_img <= CULL_IMG_MAX and same, msg
+    assert float(traced_h) == float(traced) + pad_traced, msg
+    launches[f"HybridBand frame (config4 {size}, {bh}x{bw}, cap "
+             f"{CULL_CAP})"] = frame_launches[0]
+
+    # 4. render_partitioned (audits again) == HybridBand's frame
+    cull_counts(reset=True)
+    img_p, _ = render_partitioned(scene, cam, block, device=device,
+                                  inner=grid, cap=CULL_CAP)
+    torch.cuda.synchronize()
+    n_rp = cull_counts()[0]
+    print(f"render_partitioned: bit-equal to HybridBand's frame: "
+          f"{bool(torch.equal(img_p, img))}, {n_rp} sweep launches",
+          flush=True)
+    assert torch.equal(img_p, img) and n_rp > 0
+    launches[f"render_partitioned (config4 {size})"] = n_rp
+    del img_p, img2
+
+    # 5. the hybrid fwd+bwd step against the grid step
+    dscene = band.scene
+    target = frame * 0.9
+    p0 = {"center": dscene.spheres.center, "albedo": dscene.materials.albedo}
+    h = opts.height
+
+    def hybrid_step():
+        return value_and_grad_bands(
+            lambda leaves, r0, rb: band.image(
+                scene=with_params(dscene, leaves))[0],
+            p0, block, target, [(0, h)], device=device)
+
+    def grid_step():
+        return value_and_grad_banded(with_params, p0, dscene, cam, opts,
+                                     target, device=device, tracer=grid)
+
+    hybrid_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cull_counts(reset=True)
+    v, g = hybrid_step()
+    torch.cuda.synchronize()
+    step_launches = cull_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = cuda_ms(hybrid_step, CULL_STEPS, warmup=False)
+    v_ref, g_ref = grid_step()
+    grid_step_ms = cuda_ms(grid_step, CULL_STEPS)
+    print(f"hybrid fwd+bwd step (hybrid_image under autograd, centers "
+          f"{tuple(p0['center'].shape)} and albedos "
+          f"{tuple(p0['albedo'].shape)}, target = grid frame × 0.9): "
+          f"{step_ms:.3f} ms (CUDA events, mean of {CULL_STEPS} after a "
+          f"warm-up) against the grid step's (value_and_grad_banded) "
+          f"{grid_step_ms:.3f} ms; {step_launches[0]} sweep + "
+          f"{step_launches[1]} K5 launches per step; peak {peak:.1f} MiB "
+          f"({card})", flush=True)
+    assert_vg_close("hybrid step vs the grid step", v, g, v_ref, g_ref)
+    assert step_launches[0] > 0
+    launches[f"hybrid fwd+bwd step (config4 {size})"] = step_launches[0]
+    del g, g_ref
+
+    # 6. the per-call form: render(tracer=CullTracer) in 32x160 blocks, at
+    # a cap the audit of that size shows no list above
+    w, hs = CULL_SMALL
+    small = dataclasses.replace(block, width=w, height=hs)
+    aud_s = cull_audit(scene, cam, small, device=device, cap=CULL_CAP,
+                       inner=grid)
+    top = int(max(aud_s["d0"].max(), aud_s["shadow"].max()))
+    cap_s = max(CULL_CAP, top)
+    want = render_banded(scene, cam, small, device=device, tracer=grid)[0]
+    tr = CullTracer(scene, device, inner=grid, cap=cap_s)
+    cull_counts(reset=True)
+    t0 = time.perf_counter()
+    img_s, _ = render_banded(scene, cam, small, device=device, tracer=tr)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_pc = cull_counts()[0]
+    d_s = float((img_s - want).abs().max())
+    msg = (f"render(tracer=CullTracer) config4 {w}x{hs} d4, {bh}x{bw} blocks "
+           f"({aud_s['n_tiles']} tiles; largest count {top}, cap {tr._cd.cap}): "
+           f"{secs:.3f} s, {n_pc} sweep launches; vs the grid render max "
+           f"|d| {d_s:.3g} (limit {CULL_IMG_MAX}) ({card})")
+    print(msg, flush=True)
+    assert n_pc > 0 and d_s <= CULL_IMG_MAX, msg
+    launches[f"render(tracer=CullTracer) config4 {w}x{hs} d4"] = n_pc
+
+    # 7. the overflow drill
+    w, hs, cap = CULL_DRILL
+    drill = dataclasses.replace(block, width=w, height=hs)
+    aud_d = cull_audit(scene, cam, drill, device=device, cap=cap, inner=grid)
+    over = int((aud_d["d0"] > cap).sum() + (aud_d["shadow"] > cap).sum())
+    want = render_banded(scene, cam, drill, device=device, tracer=grid)[0]
+    cull_counts(reset=True)
+    img_d, _ = render_banded(scene, cam, drill, device=device,
+                             tracer=CullTracer(scene, device, inner=grid,
+                                               cap=cap))
+    torch.cuda.synchronize()
+    n_dr = cull_counts()[0]
+    d_d = float((img_d - want).abs().max())
+    msg = (f"overflow drill config4 {w}x{hs} d4, cap {cap}: the audit finds "
+           f"{over} counts above cap (max {int(aud_d['d0'].max())} d0, "
+           f"{int(aud_d['shadow'].max())} shadow); the image differs from "
+           f"the grid's by {d_d:.4f} (must exceed {CULL_DIVERGE}); {n_dr} "
+           "sweep launches")
+    print(msg, flush=True)
+    assert over > 0 and d_d > CULL_DIVERGE and n_dr > 0, msg
+    launches[f"overflow drill config4 {w}x{hs} d4 cap {cap}"] = n_dr
+
+    print(f"culled-sweep phase: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 MD_FRAMES = 5       # timed frames per side, in turns, after a warm-up
 MD_STEPS = 3        # timed training steps (CUDA events) after a warm-up
 MD_REDUCES = 20     # timed all_reduces of the fused step's floats
@@ -2968,6 +3333,29 @@ def tooling_alone():
     print(card_line(), flush=True)
 
 
+def cull_alone():
+    """The culled-sweep phase on its own, after the kernel build and the
+    main path's config4 frame that it compares against."""
+    import torch
+
+    from raytracer_tpu_torch.kernels import build
+    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device available")
+    device = torch.device("cuda", 0)
+    print(card_line(), flush=True)
+    path, build_s = build.build_library()
+    build.load_library()
+    print(f"built {os.path.relpath(path)} in {build_s:.2f} s", flush=True)
+    scene, cam, opts = load_scene_cli("config4")
+    tracer = build_tracer(scene, "auto", device)
+    img, traced, _, _ = main_frame(scene, cam, opts, tracer, device)
+    print(json.dumps(cull_phase(scene, cam, opts, tracer, img, traced,
+                                device)))
+    print(card_line(), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3074,6 +3462,9 @@ def main() -> int:
     _phase("exact binning: config4's grid built with the separating-axis "
            "test")
     k5_exact = exact_grid_phase(scene, cam, opts, tracer, img, device)
+
+    _phase("culled sweep: config4 1920x1080 d4, 32x160 blocks, cap 1024")
+    cull = cull_phase(scene, cam, opts, tracer, img, traced, device)
 
     _phase("main path: cli render --config config3 --compact 0.5 (1024x1024 "
            "d4)")
@@ -3255,7 +3646,16 @@ def main() -> int:
         "bound_ms": bvh["bound_ms"], "bound_by": bvh["bound_by"],
         "library_ms": None, "main_paths": {
             "cli render --config config4 --tracer bvh (1080p d4 frame)":
-                bvh["launches"], **md["bvh_walk"]}}]}))
+                bvh["launches"], **md["bvh_walk"]}}, {
+        "name": "cull_sweep", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/cull_sweep.cu",
+        "replaces": "raytracer_tpu/accel/cull.py:141 and :162 "
+                    "(_dense_nearest, _dense_occluded: XLA; no pallas_call)",
+        "launches": sum(cull["launches"].values()),
+        "max_abs_err": cull["err"], "ms": cull["ms"],
+        "plain_ms": cull["plain_ms"], "bound_ms": cull["bound_ms"],
+        "bound_by": cull["bound_by"], "library_ms": None,
+        "main_paths": cull["launches"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-// Möller–Trumbore on one packed triangle row, shared by the walks over
-// packed candidate tables: the grid DDA (grid_walk.cu) and the BVH walk
-// (bvh_walk.cu). A row is 48 bytes, v0|e1|e2|id|0|0 as three float4, and
+// Möller–Trumbore on one packed triangle row, shared by the searches over
+// packed candidate tables: the grid DDA (grid_walk.cu), the BVH walk
+// (bvh_walk.cu) and the culled-list sweep (cull_sweep.cu). A row is 48 bytes, v0|e1|e2|id|0|0 as three float4, and
 // every expression follows geometry.triangle_tuv in its operation order
 // (built without multiply-add contraction, kernels/build.py), so each
 // kernel equals its plain torch version bit for bit.

@@ -155,6 +155,13 @@ def load_library() -> ctypes.CDLL:
             + [i, i, i, f, i]             # n, n_nodes, n_tris, t_min,
                                           # occlusion
             + [p, p, p])                  # t_out, i_out, stream
+        lib.rt_cull_sweep.restype = i
+        lib.rt_cull_sweep.argtypes = (
+            [p] * 7                       # orig, dir, active, max_t, ids,
+                                          # counts, rows
+            + [i, i, i, i, f, i]          # n_lists, tile, cap, n_tris,
+                                          # t_min, occlusion
+            + [p] * 4)                    # t_out, i_out, occ_out, stream
         lib.rt_mat_trace.restype = i
         lib.rt_mat_trace.argtypes = (
             [p] * 6                       # feats, live, n_live, max_t,

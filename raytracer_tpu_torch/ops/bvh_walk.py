@@ -19,6 +19,7 @@ import torch
 
 from raytracer_tpu_torch.accel import bvh as bvh_mod
 from raytracer_tpu_torch.kernels.build import check_arg
+from raytracer_tpu_torch.ops.walk import pack_rows
 
 # Kernel launches since the last reset. Incremented only where the kernel
 # is launched; callers that must show the kernel ran set it to 0 and read it.
@@ -55,9 +56,8 @@ def pack_bvh_table(bvh: bvh_mod.BVHData, v0, e1, e2) -> BVHTable:
     if not torch.equal(listed, slot[None, :] < counts[:, None]):
         raise ValueError("leaf_tris: a sentinel slot precedes a listed one")
     ids = leaf[listed].long()  # row-major: node by node, slots in order
-    slots = torch.cat([v0[ids], e1[ids], e2[ids],
-                       ids.to(torch.float32)[:, None],
-                       v0.new_zeros((ids.shape[0], 2))], dim=1)
+    slots = pack_rows(torch.cat([v0[ids], e1[ids], e2[ids],
+                                 ids.to(torch.float32)[:, None]], dim=1))
     bits = torch.stack([torch.cumsum(counts, 0) - counts, counts],
                        dim=1).to(torch.int32).view(torch.float32)
     box = bvh.aabb6
@@ -66,7 +66,7 @@ def pack_bvh_table(bvh: bvh_mod.BVHData, v0, e1, e2) -> BVHTable:
     minid = torch.where(listed, leaf, bvh.n_tris).amin(dim=1)
     return BVHTable(soa=(v0, e1, e2), nodes=nodes.contiguous(),
                     minid=minid.to(torch.int32).contiguous(),
-                    slots=slots.contiguous())
+                    slots=slots)
 
 
 @torch.no_grad()

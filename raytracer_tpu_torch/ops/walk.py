@@ -46,6 +46,14 @@ class WalkTable:
     slots: torch.Tensor
 
 
+def pack_rows(rows):
+    """[n, 10] f32 rows v0|e1|e2|id → the [n, 12] packed rows v0|e1|e2|id|0|0
+    that `csrc/tri_row.cuh` reads as three 16-byte loads (the grid walk's
+    cell slots, the BVH's leaf slots, the culled sweep's table)."""
+    return torch.cat([rows, rows.new_zeros((rows.shape[0], 2))],
+                     dim=1).contiguous()
+
+
 def pack_cell_table(grid: grid_mod.GridData) -> WalkTable:
     """The walk's tables from `grid.cell_soa`, whose cells fill front to
     back (listed triangles, then sentinel slots with id = n_tris)."""
@@ -61,11 +69,10 @@ def pack_cell_table(grid: grid_mod.GridData) -> WalkTable:
     slot = torch.arange(grid.capacity, device=soa.device)
     if not torch.equal(listed, slot[None, :] < counts[:, None]):
         raise ValueError("cell_soa: a sentinel slot precedes a listed one")
-    rows = soa[listed]  # row-major: cell by cell, slots in order
-    slots = torch.cat([rows, rows.new_zeros((rows.shape[0], 2))], dim=1)
+    slots = pack_rows(soa[listed])  # row-major: cell by cell, slots in order
     cells = torch.stack([torch.cumsum(counts, 0) - counts, counts], dim=1)
     return WalkTable(soa=soa, cells=cells.to(torch.int32).contiguous(),
-                     slots=slots.contiguous())
+                     slots=slots)
 
 
 def _max_iters(grid):

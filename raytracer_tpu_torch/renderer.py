@@ -241,6 +241,11 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
     loop reads nothing back from the device. The first compaction numbers
     the lanes by their uncompacted slots; before it slot i is lane i.
     """
+    if getattr(tracer, "per_trace_cursor", False):
+        # depth-aware tracers (accel.cull.CullTracer) map their call counter
+        # to bounce depths: a fresh counter per call keeps the mapping right
+        # across tiles and in a remat recompute
+        tracer = tracer.fresh()
     n0 = orig.shape[0]
     dev = orig.device
     radiance = torch.zeros((n0, 3), dtype=torch.float32, device=dev)
@@ -319,7 +324,8 @@ def _plan_remat_tile(scene, orig, direc, opts, count_rays, tracer):
             *drop)
 
 
-def _render_tile(scene, orig, direc, opts, count_rays, tracer, remat):
+def render_tile(scene, orig, direc, opts, count_rays, tracer, remat):
+    """`render_rays` of one tile, under `opts.remat_policy` when `remat`."""
     if not remat:
         return render_rays(scene, orig, direc, opts, count_rays,
                            tracer=tracer)
@@ -358,6 +364,39 @@ def block_perm(rows: int, width: int, bh: int, bw: int):
 def _same_device(a, b) -> bool:
     a, b = torch.device(a), torch.device(b)
     return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
+def tile_dirs(camera: Camera, opts: RenderOptions, row0: int, rows: int,
+              blocks: bool = True):
+    """The band's primary directions in `render`'s tile order → (dirs
+    [n_pad, 3], inv_order [rows·W] or None, tile, n_pix), on the device of
+    `camera` (a device camera). Tiles are `tile` consecutive lanes: screen
+    blocks when `blocks` and `opts.tile_block` matches the tile exactly
+    (`inv_order` gathers lanes back to pixel order), else pixel-order runs;
+    padding lanes take the direction (0, 0, -1)."""
+    w = opts.width
+    n_pix = rows * w
+    device = camera.c2w.device
+    dirs = geom.raygen(camera.c2w, camera.fov_deg, w, opts.height, row0=row0,
+                       rows=rows)
+    tile = min(opts.tile_rays, _ceil_to(n_pix, 8))
+    # block order engages only when the block matches the tile exactly;
+    # otherwise flat tiles (identical images either way)
+    block = (opts.tile_block if blocks and opts.tile_block is not None
+             and n_pix > tile
+             and opts.tile_block[0] * opts.tile_block[1] == tile else None)
+    inv_order = None
+    dummy = torch.tensor([[0.0, 0.0, -1.0]], dtype=torch.float32,
+                         device=device)
+    if block is not None:
+        perm, inv = block_perm(rows, w, *block)
+        dirs = torch.cat([dirs, dummy])[torch.from_numpy(perm).to(device)]
+        inv_order = torch.from_numpy(inv).to(device)
+    else:
+        n_pad = _ceil_to(n_pix, tile)
+        if n_pad != n_pix:
+            dirs = torch.cat([dirs, dummy.expand(n_pad - n_pix, 3)])
+    return dirs, inv_order, tile, n_pix
 
 
 def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
@@ -400,27 +439,9 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
     camera = camera.to(device)
     h, w = opts.height, opts.width
     rows = h if rows is None else rows
-    n_pix = rows * w
-    dirs = geom.raygen(camera.c2w, camera.fov_deg, w, h, row0=row0,
-                       rows=rows)
-    tile = min(opts.tile_rays, _ceil_to(n_pix, 8))
     compact = use_compact(scene, opts)
-    # block order engages only when the block matches the tile exactly;
-    # otherwise flat tiles (identical images either way)
-    block = (opts.tile_block if opts.tile_block is not None and not compact
-             and n_pix > tile
-             and opts.tile_block[0] * opts.tile_block[1] == tile else None)
-    inv_order = None
-    dummy = torch.tensor([[0.0, 0.0, -1.0]], dtype=torch.float32,
-                         device=device)
-    if block is not None:
-        perm, inv = block_perm(rows, w, *block)
-        dirs = torch.cat([dirs, dummy])[torch.from_numpy(perm).to(device)]
-        inv_order = torch.from_numpy(inv).to(device)
-    else:
-        n_pad = _ceil_to(n_pix, tile)
-        if n_pad != n_pix:
-            dirs = torch.cat([dirs, dummy.expand(n_pad - n_pix, 3)])
+    dirs, inv_order, tile, n_pix = tile_dirs(camera, opts, row0, rows,
+                                             blocks=not compact)
     ntiles = dirs.shape[0] // tile
     strided = compact and ntiles > 1
     if strided:  # tile k holds pixels k, k + ntiles, k + 2·ntiles, …
@@ -442,7 +463,7 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
                 wins.append(w_t)
                 occs.append(o_t)
             else:
-                rad, inc, *drop = _render_tile(
+                rad, inc, *drop = render_tile(
                     scene, orig, dirs[s:s + tile], opts, count_rays, tracer,
                     remat)
                 if compact:

@@ -1,6 +1,6 @@
 """PyTorch port: the CUDA kernels (grid walk, fused Whitted forward in its
-three modes, fused train, the brute-force triangle searches, the BVH walk)
-against their plain torch versions, and raygen's pixel coordinates on the
+three modes, fused train, the brute-force triangle searches, the BVH walk,
+the culled-list sweep) against their plain torch versions, and raygen's pixel coordinates on the
 card against the CPU's.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from raytracer_tpu_torch.accel import cull as C
 from raytracer_tpu_torch.accel.bvh import BVHTracer, bvh_walk
 from raytracer_tpu_torch.accel.grid import GridTracer, walk_init
 from raytracer_tpu_torch.models import presets
 from raytracer_tpu_torch.ops import bvh_walk as BW
+from raytracer_tpu_torch.ops import cull_sweep as CS
 from raytracer_tpu_torch.ops import fused as F
 from raytracer_tpu_torch.ops import mat_trace as MT
 from raytracer_tpu_torch.ops import pallas_trace as PT
@@ -1019,3 +1021,141 @@ def test_bvh_kernel_wrapper_rejects_bad_inputs(bvh_case):
     with pytest.raises(ValueError, match="bool"):
         BW.bvh_walk_cuda(b, table, orig, dirs, opts.t_min,
                          active=torch.ones_like(orig[:, 0]))
+
+
+# --------------------------------------------------------------------------
+# the culled-list sweep (csrc/cull_sweep.cu) against its plain version, bit
+# for bit, and against the grid walk
+
+CULL_TILE = 2560  # 16 lists of config4's 256x160 primaries
+
+
+def _cull_lists(device, cap, seed=0, occlusion=False):
+    """config4's blob, its 256x160 primaries (or, for `occlusion`, rays from
+    random points in the blob's box toward random points) in lists of
+    CULL_TILE lanes, a seeded fifth of them inactive → (cull data, rays,
+    ids, counts, inside, max_t or None, t_min)."""
+    scene, cam, opts = presets.config4_mesh()
+    cd = C.build_cull(scene, device, cap)
+    orig, dirs = _rays(cam, device)
+    n = orig.shape[0]
+    rng = np.random.default_rng(seed)
+    max_t = None
+    if occlusion:
+        lo, hi = cd.bmin.cpu().numpy(), cd.bmax.cpu().numpy()
+        a, b = (rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+                for _ in range(2))
+        d = b - a
+        dist = np.linalg.norm(d, axis=1).astype(np.float32)
+        orig = torch.from_numpy(a).to(device)
+        dirs = torch.from_numpy(d / dist[:, None]).to(device)
+        max_t = torch.from_numpy(dist).to(device)
+    active = torch.from_numpy(rng.random(n) > 0.2).to(device)
+    lo, hi, inside = C._segments(cd, orig, dirs, opts.t_min, max_t, active)
+    g = n // CULL_TILE
+    ids, counts = C.tile_ids(cd, lo.reshape(g, CULL_TILE, 3),
+                             hi.reshape(g, CULL_TILE, 3),
+                             inside.reshape(g, CULL_TILE))
+    return cd, (orig, dirs), ids, counts, inside, max_t, opts.t_min
+
+
+def test_cull_sweep_wrapper_rejects_cpu_tensors():
+    cd, rays, ids, counts, inside, _, t_min = _cull_lists("cpu", 256)
+    before = CS.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        CS.cull_sweep_cuda(rays, ids, counts, cd.rows, CULL_TILE, t_min,
+                           inside)
+    assert CS.launches == before
+
+
+def test_cull_sweep_rejects_an_unsupported_device():
+    rays = (torch.zeros((8, 3), device="meta"),) * 2
+    ids = torch.zeros((1, 128), dtype=torch.int32, device="meta")
+    counts = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        CS.cull_nearest(rays, ids, counts, torch.zeros((9, 12), device="meta"),
+                        8, 1e-4)
+
+
+def test_cull_sweep_plain_equals_brute_force():
+    """Lists that hold every triangle a ray can hit (nothing overflows): the
+    plain sweep's hits are the dense search's over all 20,480 triangles."""
+    from raytracer_tpu_torch.ops.trace import _tri_nearest
+
+    cd, rays, ids, counts, inside, _, t_min = _cull_lists("cpu", 20480)
+    assert int(counts.max()) <= cd.cap
+    j = int(counts.argmax())  # a list through the blob
+    sl = slice(j * CULL_TILE, (j + 1) * CULL_TILE)
+    o, d, act = rays[0][sl], rays[1][sl], inside[sl]
+    rows = cd.rows[:-1]
+    bt, bi = _tri_nearest(o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
+                          t_min, 4096)
+    t, i = CS.cull_sweep_plain((o, d), ids[j:j + 1], counts[j:j + 1],
+                               cd.rows, CULL_TILE, t_min, act)
+    hit = torch.isfinite(bt) & act
+    assert int(hit.sum()) > 200
+    assert torch.equal(t[hit], bt[hit]) and torch.equal(i[hit], bi[hit])
+    assert bool(torch.isinf(t[~hit]).all())
+    assert bool((i[~act] == cd.n_tris).all())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+def test_cull_kernel_equals_plain(mode):
+    """A cap that several lists overflow: the kernel truncates them as the
+    plain version does, bit for bit; inactive lanes miss with n_tris."""
+    occl = mode == "occlusion"
+    cd, rays, ids, counts, inside, max_t, t_min = _cull_lists(
+        "cuda", 256, occlusion=occl)
+    assert int(counts.max()) > cd.cap and int((counts == 0).sum()) < len(counts)
+    before = CS.launches
+    got = CS.cull_sweep_cuda(rays, ids, counts, cd.rows, CULL_TILE, t_min,
+                             inside, max_t)
+    assert CS.launches == before + 1
+    want = CS.cull_sweep_plain(rays, ids, counts, cd.rows, CULL_TILE, t_min,
+                               inside, max_t)
+    torch.cuda.synchronize()
+    if occl:
+        assert torch.equal(got, want)
+        assert 0 < int(got.sum()) < int(inside.sum())
+        return
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(torch.isfinite(got[0]).sum()) > 200  # 521 of 40,960 rays
+    assert bool((got[1][~inside] == cd.n_tris).all())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_cull_kernel_matches_grid_walk(cuda_case):
+    """Lists that nothing overflows: the sweep's hits are K5's, which runs
+    the same test_row (hit distances and winner ids equal)."""
+    cd, rays, ids, counts, inside, _, t_min = _cull_lists("cuda", 20480)
+    t, i = CS.cull_nearest(rays, ids, counts, cd.rows, CULL_TILE, t_min,
+                           inside)
+    grid = cuda_case[0]
+    tg, ig = W.grid_walk(grid._grid, grid._table, *rays, t_min,
+                         active=inside)
+    torch.cuda.synchronize()
+    assert torch.equal(t, tg)
+    hit = torch.isfinite(tg)
+    assert torch.equal(i[hit], ig[hit])
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_cull_kernel_wrapper_rejects_bad_inputs():
+    cd, rays, ids, counts, inside, _, t_min = _cull_lists("cuda", 256)
+    o, d = rays
+    with pytest.raises(ValueError, match="contiguous"):
+        CS.cull_sweep_cuda((o, d.t().contiguous().t()), ids, counts, cd.rows,
+                           CULL_TILE, t_min, inside)
+    with pytest.raises(ValueError, match="lists of"):
+        CS.cull_sweep_cuda(rays, ids, counts, cd.rows, CULL_TILE - 8, t_min,
+                           inside)
+    with pytest.raises(ValueError, match="int32"):
+        CS.cull_sweep_cuda(rays, ids.long(), counts, cd.rows, CULL_TILE,
+                           t_min, inside)
+    with pytest.raises(ValueError, match="shape"):
+        CS.cull_sweep_cuda(rays, ids, counts, cd.rows[:, :9].contiguous(),
+                           CULL_TILE, t_min, inside)
