@@ -99,14 +99,30 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   tiles, the largest counts, its time); the sweep kernel on the hybrid
   frame's calls (the thin tiles' d0 nearest and each light's shadows) bit
   for bit against its plain version and equal to K5 on the same rays, its
-  time beside its bound, the plain version's and K5's; `HybridBand` 5
-  frames in turns with the grid frame (image within 2e-7, rays, two runs);
+  calls timed whole (`call_times`: the kernel's and every device op's time
+  by the profiler, each launch's, CUDA events, the host's time) beside
+  its bound (the rays' bytes on live lanes only), the plain version's and
+  K5's, its tests over the warp tests of lane and of live-list order, the
+  CTAs each launch starts and those that stage rows; the hybrid's gate in
+  turns:
+  the whole culled d0 call against the grid tracer's call, and
+  `HybridBand` 5 frames against the grid frame (image within 2e-7, rays,
+  two runs);
   `render_partitioned` bit-equal to it; the hybrid fwd+bwd step
   (`hybrid_image` under autograd) against the grid step (loss rtol 1e-6,
   gradients rtol 1e-4, atol 1e-7), its time and peak memory;
   `render(tracer=CullTracer)` at 480×270 against the grid render; the
   overflow drill at 192×108, cap 128 (the audit flags it, the image
   diverges). Alone: `cull_alone()`.
+
+- the BVH walk (csrc/bvh_walk.cu) against its plain version (bit for bit)
+  and against K5 on config4's 1080p ray sets; the main path `cli render
+  --config config4 --tracer bvh` at 1920×1080 d4 (launches, image vs the
+  grid frame); that frame's 15 calls timed whole (`call_times`) against
+  the bound (the rays' bytes on live lanes only, beside the first
+  count's, which charged them to every lane), with each launch's live
+  rays and longest walk, and the node steps over the warp steps of lane
+  and of live-list order. Alone: `bvh_alone()`.
 
 Before the kernels, raygen's pixel coordinates at 1920×1080 on the card are
 held to the CPU's bit for bit.
@@ -116,7 +132,8 @@ A JSON line lists each kernel's launches on its main paths (per path under
 bound (the least time the card could take: operations over 67 TFLOP/s fp32
 or bytes over 3.35 TB/s, whichever is larger, for the work of all the
 frames a kernel's times cover); K1 has one entry per mode, the culled
-sweep one with its paths. Any failure
+sweep one with its paths. The BVH walk's and the culled sweep's ms are the
+profiler's sums of the kernel's own intervals. Any failure
 raises; the last
 line is `{"ok": true, "device": {...}}` only on success. Exits non-zero
 without a result when no CUDA device is available.
@@ -239,25 +256,109 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_ms(fn, key: str) -> float:
-    """Device milliseconds of one run of `fn()` spent in kernels whose names
-    contain `key`, from a torch.profiler trace (`utils/profiling`), after a
-    warm-up run."""
+def device_intervals(fn, key: str = "", expect=None) -> list:
+    """(name, device ms) of every device interval (kernels, copies, sets)
+    in one run of `fn()` traced by torch.profiler (`utils/profiling`), in
+    launch order, after a warm-up run. A trace that holds no interval whose
+    name contains `key`, or not `expect` of them, is taken again (four
+    times at most): a profiler session after the first in a process now and
+    then records no device time. Raises if none does."""
     import tempfile
 
     import torch
 
-    from raytracer_tpu_torch.utils.profiling import top_ops, xprof_trace
+    from raytracer_tpu_torch.utils.profiling import (DEVICE_CATS,
+                                                     trace_events,
+                                                     xprof_trace)
 
     fn()
     torch.cuda.synchronize()
     os.makedirs(OUT, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=OUT) as d:
-        with xprof_trace(d, device="cuda"):
-            fn()
-            torch.cuda.synchronize()
-        return sum(secs for name, secs, _ in top_ops(d, k=ALL_OPS)
-                   if key in name) * 1e3
+    for _ in range(5):
+        with tempfile.TemporaryDirectory(dir=OUT) as d:
+            with xprof_trace(d, device="cuda"):
+                fn()
+                torch.cuda.synchronize()
+            events = sorted((e["ts"], e["name"], float(e["dur"]) / 1e3)
+                            for e in trace_events(d)
+                            if e.get("cat", "").lower() in DEVICE_CATS)
+        n = sum(key in name for _, name, _ in events)
+        if n and (expect is None or n == expect):
+            return [(name, ms) for _, name, ms in events]
+    raise RuntimeError(f"the profiler recorded {n} {key} launches, expected "
+                       f"{expect or 'some'}")
+
+
+def profile_launches(fn, key: str, expect=None) -> list:
+    """Device milliseconds of each kernel whose name contains `key`, in
+    launch order, in one run of `fn()` (`device_intervals`)."""
+    return [ms for name, ms in device_intervals(fn, key, expect)
+            if key in name]
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Host milliseconds to issue `fn()` (no synchronize in the window, the
+    device idle at its start), mean of `reps` runs after a warm-up."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+def call_times(calls, key: str) -> dict:
+    """A kernel's recorded calls (`calls`: one thunk a call, each launching
+    the kernel whose name contains `key` once) timed whole: "each_ms" and
+    "kernel_ms", the kernel's own device intervals by the profiler and
+    their sum; "device_ms" and "device_ops", every device interval of the
+    calls (the kernel's and the wrapper's other kernels, torch ops, copies
+    and sets); "events_ms", CUDA events around the calls (mean of 5 after
+    a warm-up); "host_ms", the host's time to issue them (`host_ms`);
+    "source", "profiler". Where no profiler session of this process
+    records device time, each call's CUDA-event window (mean of 5) stands
+    in for its device time, and "source" says "events"."""
+    run = lambda: [c() for c in calls]
+    out = {"events_ms": cuda_ms(run, 5), "host_ms": host_ms(run),
+           "source": "profiler"}
+    try:
+        events = device_intervals(run, key, len(calls))
+    except RuntimeError as e:
+        print(f"{e}: each call's CUDA-event window stands in for its device "
+              "time", flush=True)
+        each = [cuda_ms(c, 5) for c in calls]
+        return {**out, "each_ms": each, "kernel_ms": sum(each),
+                "device_ms": sum(each), "device_ops": None,
+                "source": "events"}
+    each = [ms for name, ms in events if key in name]
+    return {**out, "each_ms": each, "kernel_ms": sum(each),
+            "device_ms": sum(ms for _, ms in events),
+            "device_ops": len(events)}
+
+
+def fmt_call(t: dict) -> str:
+    """One line of `call_times`' numbers."""
+    if t["source"] == "events":
+        return (f"the whole call {t['device_ms']:.4f} ms by each call's CUDA "
+                f"events (the profiler recorded no device time), "
+                f"{t['events_ms']:.4f} ms by CUDA events around the calls, "
+                f"{t['host_ms']:.4f} ms of host time to issue them")
+    return (f"the whole call {t['device_ms']:.4f} ms of device time by the "
+            f"profiler ({t['device_ops']} device ops; the kernel "
+            f"{t['kernel_ms']:.4f} ms of it), {t['events_ms']:.4f} ms by "
+            f"CUDA events around the calls, {t['host_ms']:.4f} ms of host "
+            f"time to issue them")
+
+
+def profile_ms(fn, key: str) -> float:
+    """Device milliseconds of one run of `fn()` spent in kernels whose names
+    contain `key` (`profile_launches`' sum)."""
+    return sum(profile_launches(fn, key))
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -278,6 +379,17 @@ def instruction_rate() -> float:
     mhz = float(out.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return 128.0 * sms * mhz * 1e6
+
+
+def print_ptxas(keys):
+    """Print the registers and spills of every kernel entry whose mangled
+    name contains one of `keys`, from the last build's `-Xptxas -v`."""
+    from raytracer_tpu_torch.kernels import build
+
+    for key in keys:
+        for entry, regs, st, ld in ptxas_report(build.build_log, key):
+            print(f"{entry}: {regs} registers, spill stores {st} B, spill "
+                  f"loads {ld} B", flush=True)
 
 
 def ptxas_report(log: str, key: str):
@@ -1710,11 +1822,15 @@ GLASS_CAP = 1.0
 # node step the slab test: 6 sub, 6 mul, 6 per-axis min/max, 3 max and 2
 # min over the axes (csrc/bvh_walk.cu)
 BVH_OPS = {"test": 46, "step": 23}
-# bytes per launch: per node its two 16-byte rows, its lowest id and its 8
-# octants' links (8 bytes each); per triangle its 40 bytes (v0|e1|e2|id);
-# per ray orig + dir in (24) and t + idx out (8), the mask (1) and max_t (4)
-# where given
-BVH_NODE_BYTES, BVH_TRI_BYTES, BVH_RAY_BYTES = 32 + 4 + 64, 40, 32
+# bytes per launch, counted as the culled sweep's are: the tables once, per
+# node its two 16-byte rows, its lowest id and its 8 octants' links (8 bytes
+# each), per triangle its 40 bytes (v0|e1|e2|id); per live lane orig + dir
+# in (24) and, any-hit, max_t (4); per lane t + idx out (8) and the mask
+# byte where given. BVH_OLD_RAY_BYTES: the first count, which charged
+# orig + dir + t + idx to every lane (printed beside the new bound).
+BVH_NODE_BYTES, BVH_TRI_BYTES = 32 + 4 + 64, 40
+BVH_LIVE_BYTES = {"nearest": 24, "occluded": 28}
+BVH_LANE_BYTES, BVH_OLD_RAY_BYTES = 8, 32
 
 
 def frame_times(fn, n=FRAMES):
@@ -2076,27 +2192,92 @@ def bvh_phase(scene, cam, opts, grid, grid_img, device):
     assert launches > 0 and launches == len(calls), (launches, len(calls))
     assert bad <= IMG_BAD, msg
 
-    ms = cuda_ms(lambda: [BW.bvh_walk_cuda(*a) for a in calls], 5)
+    t = bvh_times(calls)
     plain_ms = cuda_ms(lambda: [bvh_walk(a[0], *a[1].soa, *a[2:])
                                 for a in calls], 1, warmup=False)
-    stats = {}
-    nbytes = 0.0
-    for a in calls:
-        bvh_walk(a[0], *a[1].soa, *a[2:], stats=stats)
-        n = a[2].shape[0]
-        nbytes += (b.n_nodes * BVH_NODE_BYTES + b.n_tris * BVH_TRI_BYTES
-                   + n * (BVH_RAY_BYTES + (a[6] is not None)
-                          + 4 * (a[5] is not None)))
-    ops = (BVH_OPS["step"] * float(stats["steps"])
-           + BVH_OPS["test"] * float(stats["tests"]))
-    b_ms, b_by = bound_ms(ops, nbytes)
-    print(f"bvh_walk over the frame's {len(calls)} launches: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.1f} ms; {stats['steps']:.6g} node "
-          f"steps, {stats['tests']:.6g} triangle tests, {ops:.6g} ops, "
-          f"{nbytes:.6g} bytes → bound {b_ms:.4f} ms ({b_by}), "
-          f"{b_ms / ms:.1%} of bound", flush=True)
-    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+    work = bvh_work(calls)
+    b_ms, b_by = bound_ms(work["ops"], work["bytes"])
+    old_ms, old_by = bound_ms(work["ops"], work["old_bytes"])
+    ms = t["device_ms"]
+    print(f"bvh_walk over the frame's {len(calls)} launches: {fmt_call(t)}; "
+          f"plain {plain_ms:.1f} ms; {work['live']:.6g} live of "
+          f"{work['lanes']:.6g} lanes, {work['steps']:.6g} node steps (the "
+          f"longest walk {work['max_steps']:.0f}), {work['tests']:.6g} "
+          f"triangle tests, {work['ops']:.6g} ops, {work['bytes']:.6g} bytes "
+          f"→ bound {b_ms:.4f} ms ({b_by}), the call at {b_ms / ms:.1%} of "
+          f"bound (the first count, ray bytes on every lane: "
+          f"{work['old_bytes']:.6g} bytes, {old_ms:.4f} ms, {old_by}); "
+          f"steps / warp_steps: {work['steps'] / work['warp_lanes']:.4f} in "
+          f"lane order, {work['steps'] / work['warp_live']:.4f} in live-list "
+          f"order ({card_line()})", flush=True)
+    print(f"bvh_walk per launch (kernel ms by the {t['source']}, live lanes, "
+          "longest walk): " + "; ".join(f"{x:.4f} {n} {m}" for x, n, m in zip(
+              t["each_ms"], work["live_each"], work["max_each"])), flush=True)
+    return {"launches": launches, "err": err, "ms": ms,
+            "events_ms": t["events_ms"], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def bvh_times(calls) -> dict:
+    """The BVH walk's recorded calls through its wrapper, timed whole
+    (`call_times`)."""
+    from raytracer_tpu_torch.ops import bvh_walk as BW
+
+    return call_times([lambda a=a: BW.bvh_walk_cuda(*a) for a in calls],
+                      "bvh_walk_kernel")
+
+
+def live_first(per_lane, act, rows: int = 1):
+    """`per_lane`'s entries in `rows` rows, each row's live ones (`act`;
+    None: every lane) moved to its front in order and the rest 0: the slots
+    in live-list order."""
+    import torch
+
+    x = per_lane.reshape(rows, -1)
+    if act is None:
+        return x
+    a = act.reshape(rows, -1)
+    order = torch.argsort((~a).to(torch.int32), dim=1, stable=True)
+    return (x * a).gather(1, order)
+
+
+def bvh_work(calls) -> dict:
+    """What recorded BVH walk calls need (one pass of the plain walk counts
+    the steps and tests): live and all lanes, steps, tests, warp steps in
+    lane and in live-list order (`kernels.build.warp_work`), operations,
+    bytes, and the first count's bytes."""
+    from raytracer_tpu_torch.accel.bvh import bvh_walk
+    from raytracer_tpu_torch.kernels.build import warp_work
+
+    w = {k: 0.0 for k in ("live", "lanes", "steps", "tests", "warp_lanes",
+                          "warp_live", "bytes", "old_bytes")}
+    w["live_each"], w["max_each"] = [], []
+    for a in calls:
+        b, table, orig, _, _, max_t, act = a
+        stats = {}
+        bvh_walk(b, *table.soa, *a[2:], stats=stats)
+        steps = stats["lane_steps"]
+        w["warp_lanes"] += warp_work(steps)
+        w["warp_live"] += warp_work(live_first(steps, act))
+        w["steps"] += stats.get("steps", 0)  # none when no lane is live
+        w["tests"] += stats.get("tests", 0)
+        w["max_each"].append(stats.get("max_steps", 0))
+        n = orig.shape[0]
+        live = n if act is None else int(act.sum())
+        mode = "nearest" if max_t is None else "occluded"
+        tables = b.n_nodes * BVH_NODE_BYTES + b.n_tris * BVH_TRI_BYTES
+        mask = act is not None
+        w["live"] += live
+        w["live_each"].append(live)
+        w["lanes"] += n
+        w["bytes"] += (tables + live * BVH_LIVE_BYTES[mode]
+                       + n * (BVH_LANE_BYTES + mask))
+        w["old_bytes"] += tables + n * (BVH_OLD_RAY_BYTES + mask
+                                        + 4 * (max_t is not None))
+    w["ops"] = (BVH_OPS["step"] * w["steps"]
+                + BVH_OPS["test"] * w["tests"])
+    w["max_steps"] = max(w["max_each"])
+    return w
 
 
 def exact_grid_phase(scene, cam, opts, box, box_img, device):
@@ -2194,28 +2375,70 @@ CULL_ROW_BYTES = 40
 
 
 def cull_work(calls):
-    """Tests, operations and bytes of recorded sweep calls (the plain
-    version counts the tests) → (tests, ops, bytes)."""
+    """Tests, warp tests in lane and in live-list order
+    (`kernels.build.warp_work` a row per list), operations and bytes of
+    recorded sweep calls (one pass of the plain version counts the tests)
+    → dict."""
     import torch
 
+    from raytracer_tpu_torch.kernels.build import warp_work
     from raytracer_tpu_torch.ops import cull_sweep as CS
 
-    tests = nbytes = 0.0
+    w = {k: 0.0 for k in ("tests", "warp_lanes", "warp_live", "bytes")}
     for name, args in calls:
-        stats = {}
         rays, ids, counts, table, tile, t_min, act, *mx = args
+        stats = {}
         CS.cull_sweep_plain(rays, ids, counts, table, tile, t_min, act, *mx,
                             stats=stats)
-        tests += stats["tests"]
+        per = stats["lane_tests"]
+        w["warp_lanes"] += warp_work(per.reshape(-1, tile))
+        w["warp_live"] += warp_work(live_first(per, act, ids.shape[0]))
+        w["tests"] += stats["tests"]
         lens = torch.clamp(counts, max=ids.shape[1])
         slot = torch.arange(ids.shape[1], device=ids.device)
         listed = ids[slot[None, :] < lens[:, None]]
         live = rays[0].shape[0] if act is None else int(act.sum())
-        nbytes += (live * CULL_LIVE_BYTES[name]
-                   + rays[0].shape[0] * CULL_LANE_BYTES[name]
-                   + 4 * counts.shape[0] + 4 * float(lens.sum())
-                   + CULL_ROW_BYTES * torch.unique(listed).numel())
-    return tests, CULL_OPS * tests, nbytes
+        w["bytes"] += (live * CULL_LIVE_BYTES[name]
+                       + rays[0].shape[0] * CULL_LANE_BYTES[name]
+                       + 4 * counts.shape[0] + 4 * float(lens.sum())
+                       + CULL_ROW_BYTES * torch.unique(listed).numel())
+    w["ops"] = CULL_OPS * w["tests"]
+    return w
+
+
+def cull_times(calls) -> dict:
+    """The sweep's recorded (mode, args) calls through its wrapper, timed
+    whole (`call_times`)."""
+    from raytracer_tpu_torch.ops import cull_sweep as CS
+
+    return call_times([lambda a=a: CS.cull_sweep_cuda(*a)
+                       for _, a in calls], "cull_sweep_kernel")
+
+
+def cull_ctas(args) -> tuple:
+    """(CTAs the sweep kernel launches, CTAs that stage rows) for one
+    recorded call (`cull_sweep.list_live`, `cta_shares`)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cull_sweep as CS
+
+    _, ids, counts, _, tile, _, act, *_ = args
+    n_lists = ids.shape[0]
+    n_live = (torch.full((n_lists,), tile, dtype=torch.int32,
+                         device=ids.device) if act is None
+              else CS.list_live(act, n_lists, tile)[1])
+    table = CS.cta_shares(n_live, counts, tile, CS.THREADS)
+    return table.shape[0] * table.shape[1], int((table[..., 1] > 0).sum())
+
+
+def ms_in_turns(fns, n=FRAMES, reps=5):
+    """CUDA-event ms of each of `fns` (`cuda_ms`, `reps` runs after a
+    warm-up), `n` rounds in turns → [(median, all)] per fn."""
+    times = [[] for _ in fns]
+    for _ in range(n):
+        for fn, ts in zip(fns, times):
+            ts.append(cuda_ms(fn, reps))
+    return [(sorted(ts)[n // 2], ts) for ts in times]
 
 
 def cull_vs_walk(name, args, grid):
@@ -2358,30 +2581,39 @@ def cull_phase(scene, cam, opts, grid, frame, traced, device):
         e, w_args = cull_vs_walk(name, args, grid)
         err = max(err, e)
         walks.append(w_args)
-    ms = cuda_ms(lambda: [CS.cull_sweep_cuda(*a) for _, a in calls], 5)
+    t = cull_times(calls)
+    ms = t["device_ms"]
     plain_ms = cuda_ms(lambda: [CS.cull_sweep_plain(*a) for _, a in calls], 1,
                        warmup=False)
     k5_ms = cuda_ms(lambda: [W.grid_walk_cuda(*a) for a in walks], 5)
-    tests, ops, nbytes = cull_work(calls)
-    b_ms, b_by = bound_ms(ops, nbytes)
-    # the whole search call, culling included, against the grid tracer's
+    work = cull_work(calls)
+    b_ms, b_by = bound_ms(work["ops"], work["bytes"])
+    # the hybrid's gate, part 1: the whole search call, culling included,
+    # against the grid tracer's, in turns
     rays = calls[0][1][0]
     act = calls[0][1][6]
     fresh = band.cull.fresh
-    call_ms = cuda_ms(lambda: fresh().nearest(*rays, block.t_min,
-                                              block.tri_chunk, act), 5)
-    grid_call_ms = cuda_ms(lambda: grid.nearest(*rays, block.t_min,
-                                                block.tri_chunk, act), 5)
+    (call_ms, call_all), (grid_call_ms, grid_call_all) = ms_in_turns([
+        lambda: fresh().nearest(*rays, block.t_min, block.tri_chunk, act),
+        lambda: grid.nearest(*rays, block.t_min, block.tri_chunk, act)])
+    fmt = lambda ts: ", ".join(f"{t:.4f}" for t in ts)
     print(f"cull_sweep over the hybrid frame's {len(calls)} launches (d0 "
           f"nearest + {scene.lights.count} shadow sets of "
-          f"{rays[0].shape[0]} lanes): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms; {tests:.6g} tests (Σ min(count, cap) × live "
-          f"lanes), {ops:.6g} ops, {nbytes:.6g} bytes → bound {b_ms:.4f} ms "
-          f"({b_by}), {b_ms / ms:.1%} of bound; K5 on the same rays "
-          f"{k5_ms:.4f} ms; the d0 nearest call whole (segments, lists, "
-          f"kernel, spheres/planes) {call_ms:.4f} ms against the grid "
-          f"tracer's {grid_call_ms:.4f} ms (CUDA events; {card})",
-          flush=True)
+          f"{rays[0].shape[0]} lanes): {fmt_call(t)}; plain {plain_ms:.2f} "
+          f"ms; {work['tests']:.6g} tests (Σ min(count, cap) × live lanes), "
+          f"{work['ops']:.6g} ops, {work['bytes']:.6g} bytes → bound "
+          f"{b_ms:.4f} ms ({b_by}), the call at {b_ms / ms:.1%} of bound; "
+          f"tests / warp_tests {work['tests'] / work['warp_lanes']:.4f} in "
+          f"lane order, {work['tests'] / work['warp_live']:.4f} in live-list "
+          f"order; K5 on the same rays {k5_ms:.4f} ms; the d0 nearest call "
+          f"whole (segments, lists, kernel, spheres/planes) {call_ms:.4f} ms "
+          f"({fmt(call_all)}) in turns with the grid tracer's "
+          f"{grid_call_ms:.4f} ms ({fmt(grid_call_all)}) (CUDA events, "
+          f"median of {FRAMES} rounds of 5; {card})", flush=True)
+    print(f"cull_sweep per launch (kernel ms by the {t['source']}; CTAs "
+          "launched, CTAs that stage rows): " + "; ".join(
+              f"{name} {x:.4f} ({cull_ctas(a)[0]}, {cull_ctas(a)[1]})"
+              for (name, a), x in zip(calls, t["each_ms"])), flush=True)
 
     # 3. HybridBand: frames in turns with the main-path grid frame
     (grid_s, grid_all), (hyb_s, hyb_all) = in_turns([
@@ -2514,10 +2746,15 @@ def cull_phase(scene, cam, opts, grid, frame, traced, device):
     assert over > 0 and d_d > CULL_DIVERGE and n_dr > 0, msg
     launches[f"overflow drill config4 {w}x{hs} d4 cap {cap}"] = n_dr
 
-    print(f"culled-sweep phase: {time.perf_counter() - t_start:.1f} s",
+    print(f"culled-sweep phase: {time.perf_counter() - t_start:.1f} s; the "
+          f"hybrid's gate (the whole d0 call and the frame each below the "
+          f"grid's): call {call_ms:.4f} against {grid_call_ms:.4f} ms, frame "
+          f"{hyb_s:.4f} against {grid_s:.4f} s: "
+          f"{'met' if call_ms < grid_call_ms and hyb_s < grid_s else 'not met'}",
           flush=True)
-    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+    return {"launches": launches, "err": err, "ms": ms,
+            "events_ms": t["events_ms"],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 MD_FRAMES = 5       # timed frames per side, in turns, after a warm-up
@@ -3311,9 +3548,10 @@ def main_frame(scene, cam, opts, tracer, device):
     return img, traced, dt, launches
 
 
-def tooling_alone():
-    """The tooling phase on its own, after the kernel build and the main
-    path's config4 frame that it compares against."""
+def alone_setup():
+    """What a phase run on its own starts from: the kernel build and the
+    main path's config4 frame → (scene, cam, opts, grid tracer, image,
+    traced rays, frame s, device)."""
     import torch
 
     from raytracer_tpu_torch.kernels import build
@@ -3326,33 +3564,33 @@ def tooling_alone():
     path, build_s = build.build_library()
     build.load_library()
     print(f"built {os.path.relpath(path)} in {build_s:.2f} s", flush=True)
+    print_ptxas(("bvh_live_list_kernel", "bvh_walk_kernel",
+                 "cull_live_list_kernel", "cull_sweep_kernel"))
     scene, cam, opts = load_scene_cli("config4")
     tracer = build_tracer(scene, "auto", device)
     img, traced, dt, _ = main_frame(scene, cam, opts, tracer, device)
+    return scene, cam, opts, tracer, img, traced, dt, device
+
+
+def tooling_alone():
+    """The tooling phase on its own (`alone_setup` first)."""
+    scene, cam, opts, tracer, img, traced, dt, device = alone_setup()
     tooling_phase(scene, cam, opts, tracer, img, traced, dt, device)
     print(card_line(), flush=True)
 
 
 def cull_alone():
-    """The culled-sweep phase on its own, after the kernel build and the
-    main path's config4 frame that it compares against."""
-    import torch
-
-    from raytracer_tpu_torch.kernels import build
-    from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device available")
-    device = torch.device("cuda", 0)
-    print(card_line(), flush=True)
-    path, build_s = build.build_library()
-    build.load_library()
-    print(f"built {os.path.relpath(path)} in {build_s:.2f} s", flush=True)
-    scene, cam, opts = load_scene_cli("config4")
-    tracer = build_tracer(scene, "auto", device)
-    img, traced, _, _ = main_frame(scene, cam, opts, tracer, device)
+    """The culled-sweep phase on its own (`alone_setup` first)."""
+    scene, cam, opts, tracer, img, traced, _, device = alone_setup()
     print(json.dumps(cull_phase(scene, cam, opts, tracer, img, traced,
                                 device)))
+    print(card_line(), flush=True)
+
+
+def bvh_alone():
+    """The BVH walk phase on its own (`alone_setup` first)."""
+    scene, cam, opts, tracer, img, _, _, device = alone_setup()
+    print(json.dumps(bvh_phase(scene, cam, opts, tracer, img, device)))
     print(card_line(), flush=True)
 
 
@@ -3393,6 +3631,8 @@ def main() -> int:
                   f"{st} B, spill loads {ld} B", flush=True)
         assert len(rows) == 2 and not any(st or ld for _, _, st, ld in rows), \
             rows
+    print_ptxas(("bvh_live_list_kernel", "bvh_walk_kernel",
+                 "cull_live_list_kernel", "cull_sweep_kernel"))
 
     _phase("raygen on the card")
     raygen_check(device)

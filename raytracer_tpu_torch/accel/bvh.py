@@ -320,8 +320,10 @@ def bvh_walk(bvh: BVHData, v0, e1, e2, orig, direc, t_min,
     their count back from the device each step.
 
     With a `stats` dict, adds the work the kernel does on these rays:
-    "steps" (node visits of walking lanes) and "tests" (listed triangles of
-    the visited nodes whose box was hit).
+    "steps" (node visits of walking lanes), "tests" (listed triangles of
+    the visited nodes whose box was hit), "max_steps" (the longest walk)
+    and sets "lane_steps", this call's node visits of each lane ([N] i64;
+    `kernels.build.warp_work` turns them into what warps run).
     """
     n = orig.shape[0]
     dev = orig.device
@@ -339,6 +341,8 @@ def bvh_walk(bvh: BVHData, v0, e1, e2, orig, direc, t_min,
     if active is not None:
         node = torch.where(active, node, nn)
     lanes = torch.nonzero(node < nn).squeeze(1)
+    if stats is not None:
+        lane_steps = torch.zeros((n,), dtype=torch.int64, device=dev)
     for s in range(0, lanes.shape[0], _REF_CHUNK):
         idx = lanes[s:s + _REF_CHUNK]
         for _ in range(nn + 1):
@@ -371,12 +375,17 @@ def bvh_walk(bvh: BVHData, v0, e1, e2, orig, direc, t_min,
                 listed = (tids != bvh.n_tris) & hit_box[:, None]
                 stats["steps"] = stats.get("steps", 0) + idx.shape[0]
                 stats["tests"] = stats.get("tests", 0) + int(listed.sum())
+                lane_steps[idx] += 1
             lk = bvh.links2[link_base[idx] + nc]
             nxt = torch.where(hit_box, lk[:, 0], lk[:, 1]).to(torch.int64)
             if occlusion_max_t is not None:
                 nxt = torch.where(bt < occlusion_max_t[idx], nn, nxt)
             node[idx] = nxt
             idx = idx[nxt < nn]
+    if stats is not None:
+        stats["lane_steps"] = lane_steps
+        stats["max_steps"] = max(stats.get("max_steps", 0),
+                                 int(lane_steps.max()) if n else 0)
     return best_t, best_i
 
 

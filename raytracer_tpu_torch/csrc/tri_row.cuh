@@ -1,9 +1,11 @@
-// Möller–Trumbore on one packed triangle row, shared by the searches over
-// packed candidate tables: the grid DDA (grid_walk.cu), the BVH walk
-// (bvh_walk.cu) and the culled-list sweep (cull_sweep.cu). A row is 48 bytes, v0|e1|e2|id|0|0 as three float4, and
-// every expression follows geometry.triangle_tuv in its operation order
-// (built without multiply-add contraction, kernels/build.py), so each
-// kernel equals its plain torch version bit for bit.
+// Möller–Trumbore on one packed triangle row, for the grid DDA over its
+// packed candidate table (grid_walk.cu); the BVH walk (bvh_walk.cu) and the
+// culled-list sweep (cull_sweep.cu) read the same rows and run the same
+// arithmetic in stages (mt_staged.cuh). A row is 48 bytes, v0|e1|e2|id|0|0
+// as three float4, and every expression follows geometry.triangle_tuv in
+// its operation order (built without multiply-add contraction,
+// kernels/build.py), so each kernel equals its plain torch version bit for
+// bit.
 
 #pragma once
 

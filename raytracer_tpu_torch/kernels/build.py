@@ -150,17 +150,18 @@ def load_library() -> ctypes.CDLL:
             + [p] * 4)                    # t_out, i_out, occ_out, stream
         lib.rt_bvh_walk.restype = i
         lib.rt_bvh_walk.argtypes = (
-            [p] * 8                       # orig, dir, active, max_t, nodes,
-                                          # minid, links, slots
+            [p] * 10                      # orig, dir, active, max_t, nodes,
+                                          # minid, links, slots, counter,
+                                          # live
             + [i, i, i, f, i]             # n, n_nodes, n_tris, t_min,
                                           # occlusion
             + [p, p, p])                  # t_out, i_out, stream
         lib.rt_cull_sweep.restype = i
         lib.rt_cull_sweep.argtypes = (
-            [p] * 7                       # orig, dir, active, max_t, ids,
-                                          # counts, rows
-            + [i, i, i, i, f, i]          # n_lists, tile, cap, n_tris,
-                                          # t_min, occlusion
+            [p] * 9                       # orig, dir, active, live,
+                                          # n_live, max_t, ids, counts, rows
+            + [i] * 4                     # n_lists, tile, cap, n_tris
+            + [f, i]                      # t_min, occlusion
             + [p] * 4)                    # t_out, i_out, occ_out, stream
         lib.rt_mat_trace.restype = i
         lib.rt_mat_trace.argtypes = (
@@ -201,6 +202,18 @@ def live_rays(active):
     live = torch.empty((n + 1,), dtype=torch.int32, device=dev)
     live.scatter_(0, slot, torch.arange(n, dtype=torch.int32, device=dev))
     return live, pos[-1:]
+
+
+def warp_work(per_slot):
+    """What warps of 32 slots run over `per_slot` [..., S] (each slot's work,
+    in slot order, a row per run of slots): Σ over groups of 32 consecutive
+    slots of a row, the row padded to whole warps, of 32 × the group's
+    largest entry → int."""
+    import torch
+
+    x = torch.nn.functional.pad(per_slot, (0, -per_slot.shape[-1] % 32))
+    return 32 * int(x.reshape(*x.shape[:-1], -1, 32).amax(dim=-1).sum()) \
+        if x.numel() else 0
 
 
 def launch_search(entry, rays, max_t, active, table, tp, t_min):

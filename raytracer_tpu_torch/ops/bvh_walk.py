@@ -5,8 +5,10 @@ The reference keeps this walk in XLA (`raytracer_tpu/accel/bvh.py:
 bvh_walk`, a `while_loop`, no Pallas kernel). Its plain torch version on the
 card is a host-driven loop: ~30 torch ops over the walking lanes per step,
 with a read-back of their count, for up to n_nodes + 1 steps, 15 walks per
-config4 frame. The kernel walks one ray per thread, the whole walk inside
-the kernel, and equals the plain version bit for bit.
+config4 frame. The kernel walks the live rays only (a first kernel lists
+them on the device), one a thread, in persistent warps that take their
+rays from a counter, the whole walk inside the kernel, and equals the plain
+version bit for bit; no torch op runs on the device per launch.
 
 `bvh_trace` dispatches on the rays' device: a CUDA tensor launches the
 kernel (or raises — there is no fallback), a CPU tensor runs the plain
@@ -24,6 +26,8 @@ from raytracer_tpu_torch.ops.walk import pack_rows
 # Kernel launches since the last reset. Incremented only where the kernel
 # is launched; callers that must show the kernel ran set it to 0 and read it.
 launches = 0
+# the kernel's int32 work counter runs past N by 32 lanes a warp
+_MAX_RAYS = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,12 +42,16 @@ class BVHTable:
       inner nodes): what a missed leaf folds in, as the plain walk's
       sentinel-padded row does;
     - `slots`: [T, 12] f32, every leaf's listed triangles packed once in
-      node order and in `leaf_tris`' slot order, v0|e1|e2|id|0|0."""
+      node order and in `leaf_tris`' slot order, v0|e1|e2|id|0|0;
+    - `counter`: [3] i32, the kernel's counters (the walk's next ray, its
+      warps out, the live list's length), 0 between launches (each launch
+      sets them back), so one launch at a time uses a table."""
 
     soa: tuple
     nodes: torch.Tensor
     minid: torch.Tensor
     slots: torch.Tensor
+    counter: torch.Tensor
 
 
 def pack_bvh_table(bvh: bvh_mod.BVHData, v0, e1, e2) -> BVHTable:
@@ -66,7 +74,9 @@ def pack_bvh_table(bvh: bvh_mod.BVHData, v0, e1, e2) -> BVHTable:
     minid = torch.where(listed, leaf, bvh.n_tris).amin(dim=1)
     return BVHTable(soa=(v0, e1, e2), nodes=nodes.contiguous(),
                     minid=minid.to(torch.int32).contiguous(),
-                    slots=slots)
+                    slots=slots,
+                    counter=torch.zeros((3,), dtype=torch.int32,
+                                        device=leaf.device))
 
 
 @torch.no_grad()
@@ -86,7 +96,8 @@ def bvh_trace(bvh: bvh_mod.BVHData, table: BVHTable, orig, direc, t_min,
 
 def bvh_walk_cuda(bvh: bvh_mod.BVHData, table: BVHTable, orig, direc, t_min,
                   occlusion_max_t=None, active=None):
-    """Launch the CUDA kernel on the current stream. Raises on any input the
+    """Launch the CUDA kernel on the current stream; it walks the live rays
+    of `active` and writes the masked ones' misses. Raises on any input the
     kernel does not take and on a refused launch."""
     global launches
     from raytracer_tpu_torch.kernels.build import load_library
@@ -102,7 +113,8 @@ def bvh_walk_cuda(bvh: bvh_mod.BVHData, table: BVHTable, orig, direc, t_min,
             ("table.nodes", table.nodes, f32, (nn, 8)),
             ("table.minid", table.minid, i32, (nn,)),
             ("bvh.links2", bvh.links2, i32, (8 * nn, 2)),
-            ("table.slots", table.slots, f32, (table.slots.shape[0], 12))):
+            ("table.slots", table.slots, f32, (table.slots.shape[0], 12)),
+            ("table.counter", table.counter, i32, (3,))):
         check_arg(name, x, dt, shape, dev)
     if active is not None:
         check_arg("active", active, torch.bool, (n,), dev)
@@ -113,12 +125,18 @@ def bvh_walk_cuda(bvh: bvh_mod.BVHData, table: BVHTable, orig, direc, t_min,
     i_out = torch.empty((n,), dtype=i32, device=dev)
     if n == 0:
         return t_out, i_out
+    if n > _MAX_RAYS:
+        raise ValueError(f"too many rays for one launch: {n}")
+    # the kernel's list of live rays (scratch; no device op)
+    live = None if active is None else torch.empty((n,), dtype=i32,
+                                                   device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = load_library().rt_bvh_walk(
         orig.data_ptr(), direc.data_ptr(), ptr(active), ptr(occlusion_max_t),
         table.nodes.data_ptr(), table.minid.data_ptr(),
-        bvh.links2.data_ptr(), table.slots.data_ptr(), n, nn, bvh.n_tris,
-        float(t_min), int(occl), t_out.data_ptr(), i_out.data_ptr(),
+        bvh.links2.data_ptr(), table.slots.data_ptr(),
+        table.counter.data_ptr(), ptr(live), n, nn, bvh.n_tris, float(t_min),
+        int(occl), t_out.data_ptr(), i_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"BVH walk kernel launch failed: CUDA error {rc}")

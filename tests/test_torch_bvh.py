@@ -36,6 +36,7 @@ from raytracer_tpu.renderer import render as ref_render
 from raytracer_tpu_torch.accel.bvh import BVHTracer, build_bvh, bvh_walk
 from raytracer_tpu_torch.core.types import Planes, Spheres, scene_from_arrays
 from raytracer_tpu_torch.io.image import load_ppm
+from raytracer_tpu_torch.kernels.build import warp_work
 from raytracer_tpu_torch.ops import trace as trace_ops
 from raytracer_tpu_torch.ops.bvh_walk import bvh_trace, pack_bvh_table
 from raytracer_tpu_torch.renderer import as_leaf, render
@@ -342,3 +343,49 @@ def test_cli_render_bvh(tmp_path):
                                  "config4_192x108.ppm"))
     assert_images_close(got, want, tol=0.004, max_bad_frac=0.004,
                         name="config4 bvh")
+
+
+def _warp_sum(slots):
+    """Σ over groups of 32 consecutive slots of 32 × the group's largest
+    entry, the last group padded with zeros (a loop, as a warp runs)."""
+    total = 0
+    for g in range(0, len(slots), 32):
+        total += 32 * max(slots[g:g + 32])
+    return total
+
+
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+@pytest.mark.parametrize("order", ["lanes", "live"])
+def test_bvh_walk_warp_steps(mesh_scene, mode, order):
+    """The walk's counters against a loop over lanes: each lane walked
+    alone gives its steps and tests, `lane_steps` holds each lane's, and
+    `warp_work` of them in a slot order (all lanes, or the active ones in
+    ascending order) is Σ over groups of 32 slots of 32 × the group's
+    longest walk. Passing `stats` leaves the outputs bit-equal."""
+    tracer = BVHTracer.build(scene_from_arrays(mesh_scene[0]), "cpu")
+    b, table = tracer._bvh, tracer._table
+    n = 100
+    orig, d = (torch.from_numpy(x) for x in _random_rays(n, 11))
+    act = torch.from_numpy(np.random.default_rng(11).random(n) < 0.6)
+    mt = torch.full((n,), 4.0) if mode == "occlusion" else None
+    stats = {}
+    got = bvh_walk(b, *table.soa, orig, d, T_MIN, mt, act, stats=stats)
+    want = bvh_walk(b, *table.soa, orig, d, T_MIN, mt, act)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    steps, tests = [], 0
+    for i in range(n):
+        one = {}
+        if bool(act[i]):
+            bvh_walk(b, *table.soa, orig[i:i + 1], d[i:i + 1], T_MIN,
+                     None if mt is None else mt[i:i + 1], stats=one)
+        steps.append(one.get("steps", 0))
+        tests += one.get("tests", 0)
+    assert stats["lane_steps"].tolist() == steps
+    assert stats["steps"] == sum(steps) and stats["tests"] == tests
+    assert stats["max_steps"] == max(steps)
+    lane_steps = stats["lane_steps"]
+    slots = steps if order == "lanes" else [
+        s for s, a in zip(steps, act.tolist()) if a]
+    warp = warp_work(lane_steps if order == "lanes" else lane_steps[act])
+    assert warp == _warp_sum(slots)
+    assert warp > stats["steps"] > 0

@@ -24,6 +24,7 @@ from raytracer_tpu.accel.grid import GridTracer as RefGridTracer
 from raytracer_tpu.renderer import render as ref_render
 from raytracer_tpu_torch.accel import cull as C
 from raytracer_tpu_torch.accel.grid import GridTracer
+from raytracer_tpu_torch.kernels.build import warp_work
 from raytracer_tpu_torch.ops import cull_sweep as CS
 from raytracer_tpu_torch.renderer import render, value_and_grad_banded
 from tests.helpers import assert_images_close
@@ -360,3 +361,143 @@ def test_culled_call_must_be_whole_lists(case):
     hit = tr.fresh().nearest(orig[:1024], dirs[:1024], 1e-4, 1024)
     want = case["grid"].nearest(orig[:1024], dirs[:1024], 1e-4, 1024)
     assert torch.equal(hit.t, want.t) and torch.equal(hit.kind, want.kind)
+
+
+def _sweep_inputs(case, mode, cap):
+    """The band's primaries (or one light's shadow rays) in render's tiles,
+    culled at `cap` → (rays, ids, counts, table, tile, t_min, inside,
+    max_t), the sweep's arguments."""
+    cd = C.build_cull(case["ps"], "cpu", cap)
+    orig, dirs, k, tile = _primary_tiles(case)
+    t_min = case["po"].t_min
+    max_t, active = None, None
+    if mode == "occluded":
+        orig, dirs, max_t, active = _shadow_rays(case)
+    lo, hi, inside = C._segments(cd, orig, dirs, t_min, max_t, active)
+    ids, counts = C.tile_ids(cd, lo.reshape(k, tile, 3),
+                             hi.reshape(k, tile, 3), inside.reshape(k, tile))
+    return (orig, dirs), ids, counts, cd.rows, tile, t_min, inside, max_t
+
+
+@pytest.mark.parametrize("mode", ["nearest", "occluded"])
+@pytest.mark.parametrize("order", ["lanes", "live"])
+def test_plain_sweep_warp_tests(case, mode, order):
+    """The sweep's counters against a loop over lanes (a cap that lists
+    overflow): tests = Σ min(count, cap) over live lanes, `lane_tests` each
+    lane's, and `warp_work` of them in a slot order (each list's lanes, or
+    its live lanes in order, a row per list) = Σ over groups of 32 slots of
+    each list of 32 × the group's most tests. Passing `stats` leaves the
+    outputs bit-equal."""
+    args = _sweep_inputs(case, mode, SMALL_CAP)
+    stats = {}
+    got = CS.cull_sweep_plain(*args, stats=stats)
+    want = CS.cull_sweep_plain(*args)
+    if mode == "occluded":
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ids, counts, tile, inside = args[1], args[2], args[4], args[6]
+    lens = np.minimum(counts.numpy(), ids.shape[1])
+    ins = inside.numpy().reshape(-1, tile)
+    tests = warp = 0
+    lane_tests, rows = [], []
+    for j in range(ins.shape[0]):
+        per = [int(lens[j]) if a else 0 for a in ins[j]]
+        tests += sum(per)
+        lane_tests += per
+        slots = per if order == "lanes" else [
+            p for p, a in zip(per, ins[j]) if a]
+        rows.append(slots + [0] * (tile - len(slots)))
+        for g in range(0, len(slots), 32):
+            warp += 32 * max(slots[g:g + 32])
+    assert stats["lane_tests"].tolist() == lane_tests
+    assert stats["tests"] == tests
+    per_lane = (stats["lane_tests"].reshape(-1, tile) if order == "lanes"
+                else torch.tensor(rows))
+    assert warp_work(per_lane) == warp
+    assert warp > tests > 0
+    assert int((counts > SMALL_CAP).sum()) > 0  # overflowing lists count cap
+
+
+def _np_shares(act, counts, tile, per_cta):
+    """numpy: each list's live lanes, the kernel's list of them (each at
+    the front of its list's segment, the rest N), their counts, and the CTA
+    table (first, count) of the kernel's launch."""
+    act = act.reshape(-1, tile)
+    n = act.size
+    lanes = [np.nonzero(a)[0] + j * tile for j, a in enumerate(act)]
+    sizes = np.array([len(x) for x in lanes])
+    live = np.full(n, n, np.int64)
+    for j, x in enumerate(lanes):
+        live[j * tile:j * tile + len(x)] = x
+    nb = -(-tile // per_cta)
+    table = np.zeros((act.shape[0], nb, 2), np.int64)
+    for j in range(act.shape[0]):
+        for b in range(nb):
+            k = min(per_cta, sizes[j] - b * per_cta)
+            table[j, b] = (j * tile + b * per_cta,
+                           max(0, k) if counts[j] > 0 else 0)
+    return lanes, live, sizes, table
+
+
+@pytest.mark.parametrize("shape", ["dead_and_empty", "exactly_L", "ragged",
+                                   "padded_row"])
+def test_sweep_live_lists_and_cta_table(case, shape):
+    """`list_live`'s list and counts (the list kernel's) and `cta_shares`'
+    table against numpy; every CTA of the table takes its
+    list's live lanes in order, and together the CTAs take every live lane
+    of every non-empty list once. Cases: lists with no live lane and lists
+    with no candidate, a list of exactly L live lanes, a tile that is not a
+    multiple of L, and render's padded block row."""
+    per_cta = CS.THREADS
+    rng = np.random.default_rng(5)
+    if shape == "padded_row":
+        # 64 rows in blocks of 24: the last block row is padded with the
+        # dummy direction
+        opts = dataclasses.replace(case["po"], tile_block=(24, 96),
+                                   tile_rays=24 * 96)
+        cd = C.build_cull(case["ps"], "cpu", CAP)
+        _, dirs, orig, _, tile, n_pix, _ = C._band_tiles(
+            case["ps"], case["pc"], opts, 0, None, "cpu")
+        k = dirs.shape[0]
+        assert k * tile > n_pix
+        o, d = orig.repeat(k, 1), dirs.reshape(-1, 3)
+        lo, hi, inside = C._segments(cd, o, d, opts.t_min)
+        _, counts = C.tile_ids(cd, lo.reshape(k, tile, 3),
+                               hi.reshape(k, tile, 3),
+                               inside.reshape(k, tile))
+        act = inside.numpy()
+    else:
+        tile = {"dead_and_empty": 600, "exactly_L": 2 * per_cta,
+                "ragged": per_cta + 77}[shape]
+        act = rng.random((6, tile)) < 0.4
+        counts = np.array([5, 0, 3, 7, 0, 9], np.int32)
+        if shape == "dead_and_empty":
+            act[2] = False   # no live lane, candidates
+            act[1] = True    # live lanes, no candidate
+        elif shape == "exactly_L":
+            act[3] = False
+            act[3, rng.permutation(tile)[:per_cta]] = True
+        act = act.reshape(-1)
+        counts = torch.from_numpy(counts)
+    lanes, want_live, sizes, table = _np_shares(act, counts.numpy(), tile,
+                                                per_cta)
+    n_lists = len(lanes)
+    live, got_n = CS.list_live(torch.from_numpy(act), n_lists, tile)
+    got = CS.cta_shares(got_n, counts, tile, per_cta)
+    np.testing.assert_array_equal(live.numpy(), want_live)
+    np.testing.assert_array_equal(got_n.numpy(), sizes)
+    np.testing.assert_array_equal(got.numpy(), table)
+    taken = []
+    for j in range(n_lists):
+        for b, (first, n) in enumerate(got[j].tolist()):
+            mine = live[first:first + n].numpy()
+            np.testing.assert_array_equal(
+                mine, lanes[j][b * per_cta:b * per_cta + n])
+            taken.append(mine)
+    busy = [x for j, x in enumerate(lanes) if int(counts[j]) > 0]
+    np.testing.assert_array_equal(np.sort(np.concatenate(taken)),
+                                  np.sort(np.concatenate(busy)))
+    if shape == "exactly_L":
+        assert sizes[3] == per_cta and table[3, 0, 1] == per_cta
+        assert table[3, 1, 1] == 0

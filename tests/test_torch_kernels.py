@@ -988,6 +988,56 @@ def test_bvh_kernel_equals_plain(bvh_case, mode, masked):
         assert bool((i1[off] == tracer._bvh.n_tris).all())
 
 
+def _share_mask(n, share, seed, avoid=None):
+    """A mask of live share `share` over n lanes: "0" (none), "one" (a
+    single lane, not in `avoid`), "13%" (a seeded ~13%, its count made odd:
+    not a multiple of 32 × rays a thread) or "100%" (None: every lane
+    live)."""
+    if share == "100%":
+        return None
+    rng = np.random.default_rng(seed)
+    act = np.zeros(n, bool)
+    if share == "one":
+        pick = np.arange(n) if avoid is None else np.nonzero(~avoid)[0]
+        act[rng.choice(pick)] = True
+    elif share == "13%":
+        act = rng.random(n) < 0.13
+        if act.sum() % 2 == 0:
+            act[np.nonzero(act)[0][0]] = False
+    return torch.from_numpy(act).to("cuda")
+
+
+SHARES = ["0", "one", "13%", "100%"]
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("share", SHARES)
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+def test_bvh_kernel_live_shares(bvh_case, share, mode):
+    """The live-ray list at live shares of 0, one ray, ~13% (an odd count:
+    a partial last warp) and 100% (no mask, no list): bit-equal to the plain
+    walk, masked lanes (inf, n_tris), and the table's counters back at 0
+    for the next launch."""
+    tracer, orig, dirs, opts = bvh_case
+    b, table = tracer._bvh, tracer._table
+    n = orig.shape[0]
+    mx = torch.full_like(orig[:, 0], 6.0) if mode == "occlusion" else None
+    act = _share_mask(n, share, seed=7)
+    before = BW.launches
+    t1, i1 = BW.bvh_walk_cuda(b, table, orig, dirs, opts.t_min, mx, act)
+    assert BW.launches == before + 1
+    t0, i0 = bvh_walk(b, *table.soa, orig, dirs, opts.t_min, mx, act)
+    torch.cuda.synchronize()
+    assert torch.equal(t1, t0) and torch.equal(i1, i0)
+    assert table.counter.tolist() == [0, 0, 0]
+    if act is not None:
+        assert bool(torch.isinf(t1[~act]).all())
+        assert bool((i1[~act] == b.n_tris).all())
+    if share in ("13%", "100%"):
+        assert int(torch.isfinite(t1).sum()) > 100  # scene sanity
+
+
 @pytest.mark.cuda
 @NEEDS_GPU
 def test_bvh_kernel_matches_grid_walk(bvh_case, cuda_case):
@@ -1159,3 +1209,36 @@ def test_cull_kernel_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="shape"):
         CS.cull_sweep_cuda(rays, ids, counts, cd.rows[:, :9].contiguous(),
                            CULL_TILE, t_min, inside)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("share", SHARES)
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+@pytest.mark.parametrize("cap", [256, 20480])
+def test_cull_kernel_live_shares(share, mode, cap):
+    """The per-list live lanes at live shares of 0, one lane, ~13% (an odd
+    count: a partial last warp) and 100% (no list), on lists that overflow
+    their cap (cap 256) or hold an odd count of rows (cap 20480: a partial
+    last chunk, its last row tested alone): bit-equal to the plain
+    version."""
+    occl = mode == "occlusion"
+    cd, rays, ids, counts, _, max_t, t_min = _cull_lists(
+        "cuda", cap, occlusion=occl)
+    lens = torch.clamp(counts, max=cd.cap)
+    assert (int(counts.max()) > cd.cap if cap == 256
+            else bool((lens % 2 == 1).any()))
+    n = rays[0].shape[0]
+    empty = (counts == 0).repeat_interleave(CULL_TILE).cpu().numpy()
+    act = _share_mask(n, share, seed=3, avoid=empty)
+    got = CS.cull_sweep_cuda(rays, ids, counts, cd.rows, CULL_TILE, t_min,
+                             act, max_t)
+    want = CS.cull_sweep_plain(rays, ids, counts, cd.rows, CULL_TILE, t_min,
+                               act, max_t)
+    torch.cuda.synchronize()
+    if occl:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if act is not None:
+        assert bool((got[1][~act] == cd.n_tris).all())
