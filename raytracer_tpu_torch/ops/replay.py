@@ -205,7 +205,7 @@ def _replay_compact_tile(scene, orig, tdirs, opts, win_nodes, occ_nodes,
     for b in range(opts.max_depth + 1):
         terms, state, _ = renderer.bounce_step(
             scene, state, opts1, tile, is_last=b == opts.max_depth,
-            tracer=tracer, slot=slot, n_slots=tile << b)
+            tracer=tracer, slot=slot, n_slots=tile << b, depth=b)
         for t in terms:
             radiance = radiance + t
         if state is None:

@@ -11,6 +11,7 @@ from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.ops import trace as trace_ops
 from raytracer_tpu_torch.ops.geometry import reflect
 from raytracer_tpu_torch.ops.safemath import dot, maximum, safe_pow, safe_sqrt
+from raytracer_tpu_torch.utils.profiling import span
 
 # The occlusion bitmask packs one bit per light into an int32.
 MAX_PLAN_LIGHTS = 32
@@ -27,9 +28,11 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
     `occ_out` (a list) receives this bounce's per-light occlusion bitmask
     [N] i32 (bit l set = light l occluded; ≤32 lights): the plan encoding
     that ops/replay.PlanTracer reads back. The shadow searches run under
-    `torch.no_grad()` on detached rays.
-    Returns rgb [N,3]. (The reference also returns a shadow-ray count that
-    its renderer discards; the renderer counts shadow rays itself.)
+    `torch.no_grad()` on detached rays, each light's in an `rt.shadow` span.
+    Returns (rgb [N,3], [each light's [N] bool mask of the lanes its shadow
+    search answers]), the masks for the renderer's lane counts. (The
+    reference returns a shadow-ray count there, which its renderer
+    discards.)
     """
     if occ_out is not None:
         if scene.lights.count > MAX_PLAN_LIGHTS:
@@ -45,6 +48,7 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
 
     light_amt = torch.zeros_like(p)
     spec = torch.zeros_like(p)
+    searched = []
     for li in range(scene.lights.count):
         lpos = scene.lights.pos[li]
         lint = scene.lights.intensity[li]
@@ -58,7 +62,8 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
         # exact and roughly halves the walk's live set on curved geometry
         lit = (ldn > 0).detach()
         oactive = lit if active is None else (active & lit)
-        with torch.no_grad():
+        searched.append(oactive)
+        with torch.no_grad(), span("rt.shadow"):
             so, sd, sm = sorig.detach(), ldir.detach(), dist.detach()
             if tracer is None:
                 shadowed = trace_ops.occluded(scene, so, sd, sm, t_min,
@@ -75,4 +80,4 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
     rgb = light_amt * surf.albedo * surf.kd[:, None] + spec * surf.ks[:, None]
     if occ_out is not None:
         occ_out.append(occ_acc)
-    return rgb
+    return rgb, searched

@@ -125,7 +125,7 @@ def make_loss_and_grad(template: Scene, camera: Camera, opts: RenderOptions,
             """Bounce d → (radiance terms, child state or None)."""
             terms, nstate, _ = bounce_step(
                 rebuild(fl, others), tuple(fstate) + (alive,), opts, per_dev,
-                is_last=d == depths - 1, tracer=tracer)
+                is_last=d == depths - 1, tracer=tracer, depth=d)
             return terms, nstate
 
         def forward(fl, saved=None):

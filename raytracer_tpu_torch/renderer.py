@@ -51,6 +51,7 @@ from raytracer_tpu_torch.ops.dgather import permute_take
 from raytracer_tpu_torch.ops.safemath import clamp01, normalize
 from raytracer_tpu_torch.ops.shade import shade_diffuse
 from raytracer_tpu_torch.ops.trace import nearest_hit, surface_at
+from raytracer_tpu_torch.utils.profiling import count_lanes, counting, span
 
 _REMAT_POLICIES = ("plan", "full")
 
@@ -125,25 +126,30 @@ def _plan_win(scene: Scene, hit, alive):
 
 def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
                 is_last: bool, count_rays: bool = False, tracer=None,
-                plan_out: list | None = None, slot=None, n_slots: int = 0):
+                plan_out: list | None = None, slot=None, n_slots: int = 0,
+                depth: int = 0):
     """One wavefront bounce: trace + shade + spawn children.
 
     `state` = (o, d, thr, alive) ray buffers on one device. Returns (terms,
     new_state, traced_inc): `terms` are the per-pixel [n0,3] radiance
     contributions of this bounce in accumulation order; `new_state` is the
     child wavefront (None when `is_last`); `traced_inc` counts live trace
-    lanes (a 0-dim f32 tensor). `plan_out` (a list) receives this bounce's
-    plan node: (winner plane, occlusion bitmask plane), each [len(o)] i32.
+    lanes (a 0-dim f32 tensor; 0 unless `count_rays`). `plan_out` (a list)
+    receives this bounce's plan node: (winner plane, occlusion bitmask
+    plane), each [len(o)] i32.
 
     Compacted wavefronts pass `slot` [len(o)] i32, each lane's slot in this
     bounce's uncompacted buffer of `n_slots` lanes: terms fold by slot, and
     `new_state` gains a 5th element, the children's slots.
+
+    While a profiler records, the bounce's live search lanes are counted
+    under `depth` (utils/profiling.count_lanes).
     """
     o, d, thr, alive = state
     bg = torch.tensor(opts.background, dtype=torch.float32, device=o.device)
     # `active=alive` lets walk-based tracers park dead lanes before step 0
     # instead of walking their zero-normal "reflections"
-    with torch.no_grad():
+    with torch.no_grad(), span("rt.search"):
         od, dd = o.detach(), d.detach()
         if tracer is None:
             hit = nearest_hit(scene, od, dd, opts.t_min, opts.tri_chunk,
@@ -155,11 +161,9 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     if plan_out is not None:
         win = _plan_win(scene, hit, alive)
         occ_out = []
-    surf = surface_at(scene, o, d, hit, opts.t_min)
+    with span("rt.surface"):
+        surf = surface_at(scene, o, d, hit, opts.t_min)
     valid = surf.valid & alive
-    traced_inc = torch.zeros((), dtype=torch.float32, device=o.device)
-    if count_rays:
-        traced_inc = traced_inc + alive.to(torch.float32).sum()
 
     # leaves: miss → background
     miss = alive & ~surf.valid
@@ -168,16 +172,25 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
 
     # leaves: diffuse hit → local Phong (branchless; masked after)
     is_diff = valid & (surf.mtype == DIFFUSE_AND_GLOSSY)
-    local = shade_diffuse(scene, surf, d, opts.bias, opts.t_min,
-                          opts.tri_chunk, tracer=tracer, active=is_diff,
-                          occ_out=occ_out)
+    with span("rt.shade"):
+        local, searched = shade_diffuse(scene, surf, d, opts.bias,
+                                        opts.t_min, opts.tri_chunk,
+                                        tracer=tracer, active=is_diff,
+                                        occ_out=occ_out)
     if plan_out is not None:
         plan_out.append((win, occ_out[0]))
     terms.append(_fold(torch.where(is_diff[:, None], thr * local, 0.0), n0,
                        slot, n_slots))
-    if count_rays:
-        traced_inc = traced_inc + is_diff.to(torch.float32).sum() \
-            * scene.lights.count
+    traced_inc = torch.zeros((), dtype=torch.float32, device=o.device)
+    if count_rays or counting():
+        # one sum for both counts: the traced rays (alive lanes, and each
+        # diffuse hit once a light) and each search's live lanes
+        with span("rt.count"):
+            lanes = torch.stack([alive, *searched, is_diff]).sum(dim=1)
+            if count_rays:
+                traced_inc = (lanes[0] + lanes[-1] * scene.lights.count).to(
+                    torch.float32)
+            count_lanes(depth, lanes[:-1], alive.shape[0])
 
     # specular branches
     is_mirror = valid & (surf.mtype == REFLECTION)
@@ -194,8 +207,9 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
         terms.append(_fold(thr * w[:, None] * bg, n0, slot, n_slots))
         return terms, None, traced_inc
 
-    return _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc,
-                  opts, slot, n_slots)
+    with span("rt.spawn"):
+        return _spawn(scene, state, surf, spec, is_glass, kr, terms,
+                      traced_inc, opts, slot, n_slots)
 
 
 def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts,
@@ -258,13 +272,15 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
     dropped = torch.zeros((), dtype=torch.float32, device=dev)
     slot, n_slots = None, n0
     for depth in range(opts.max_depth + 1):
-        terms, state, inc = bounce_step(
-            scene, state, opts, n0, is_last=depth == opts.max_depth,
-            count_rays=count_rays, tracer=tracer, plan_out=plan, slot=slot,
-            n_slots=n_slots)
-        for t in terms:
-            radiance = radiance + t
-        traced = traced + inc
+        # the bounce's own time: the folds and the radiance sums
+        with span(f"rt.bounce.{depth}"):
+            terms, state, inc = bounce_step(
+                scene, state, opts, n0, is_last=depth == opts.max_depth,
+                count_rays=count_rays, tracer=tracer, plan_out=plan,
+                slot=slot, n_slots=n_slots, depth=depth)
+            for t in terms:
+                radiance = radiance + t
+            traced = traced + inc
         if state is None:
             break
         if slot is not None:
@@ -275,7 +291,8 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
             if slot is None:
                 slot = torch.arange(state[0].shape[0], dtype=torch.int32,
                                     device=dev)
-            state, slot, drop = _compact(tuple(state), slot, cap)
+            with span("rt.compact"):
+                state, slot, drop = _compact(tuple(state), slot, cap)
             dropped = dropped + drop
         state = tuple(state)
     out = (radiance, traced)
@@ -310,15 +327,16 @@ def _plan_remat_tile(scene, orig, direc, opts, count_rays, tracer):
     masks from the same values, hence the same compaction."""
     from raytracer_tpu_torch.ops.replay import PlanTracer
 
-    with torch.no_grad():
+    with torch.no_grad(), span("rt.record"):
         _, traced, wins, occs, *drop = render_rays(
             scene, orig, direc, opts, count_rays, tracer=tracer,
             record_plan=True)
     ns, npl = scene.spheres.count, scene.planes.count
 
-    def replay(o, d):
-        return render_rays(scene, o, d, opts,
-                           tracer=PlanTracer(wins, occs, ns, npl))[0]
+    def replay(o, d):  # the forward, and the backward's recompute
+        with span("rt.replay"):
+            return render_rays(scene, o, d, opts,
+                               tracer=PlanTracer(wins, occs, ns, npl))[0]
 
     return (checkpoint(replay, orig, direc, use_reentrant=False), traced,
             *drop)
@@ -503,22 +521,23 @@ def render_banded(scene: Scene, camera: Camera, opts: RenderOptions, *,
     so the default is one band of the whole frame. With compaction on →
     (img, traced, dropped), `dropped` summed over the bands.
     """
-    band_rows = opts.height if band_rows is None else min(band_rows,
-                                                          opts.height)
-    device = torch.device(device)
-    scene = scene.to(device)
-    camera = camera.to(device)
-    imgs = []
-    sums = None
-    for r0 in range(0, opts.height, band_rows):
-        rb = min(band_rows, opts.height - r0)
-        img, *counts = render(scene, camera, opts, device=device,
-                              count_rays=count_rays, tracer=tracer, row0=r0,
-                              rows=rb)
-        imgs.append(img)
-        sums = counts if sums is None else [a + b for a, b in zip(sums,
-                                                                  counts)]
-    return (torch.cat(imgs), *sums)
+    with span("rt.frame"):
+        band_rows = opts.height if band_rows is None else min(band_rows,
+                                                              opts.height)
+        device = torch.device(device)
+        scene = scene.to(device)
+        camera = camera.to(device)
+        imgs = []
+        sums = None
+        for r0 in range(0, opts.height, band_rows):
+            rb = min(band_rows, opts.height - r0)
+            img, *counts = render(scene, camera, opts, device=device,
+                                  count_rays=count_rays, tracer=tracer,
+                                  row0=r0, rows=rb)
+            imgs.append(img)
+            sums = counts if sums is None else [a + b for a, b in zip(sums,
+                                                                      counts)]
+        return (torch.cat(imgs), *sums)
 
 
 def render_ssaa(scene: Scene, camera: Camera, opts: RenderOptions, *,
@@ -533,27 +552,28 @@ def render_ssaa(scene: Scene, camera: Camera, opts: RenderOptions, *,
     bounds memory, so the default is one band of the whole frame. With
     compaction on → (img, traced, dropped), `dropped` summed over the bands.
     """
-    if factor < 1:
-        raise ValueError(f"ssaa factor must be ≥ 1, got {factor}")
-    hi = dataclasses.replace(opts, width=opts.width * factor,
-                             height=opts.height * factor)
-    band_rows = opts.height if band_rows is None else min(band_rows,
-                                                          opts.height)
-    device = torch.device(device)
-    scene = scene.to(device)
-    camera = camera.to(device)
-    imgs = []
-    sums = None
-    for r0 in range(0, opts.height, band_rows):
-        rb = min(band_rows, opts.height - r0)
-        img, *counts = render(scene, camera, hi, device=device,
-                              count_rays=count_rays, tracer=tracer,
-                              row0=r0 * factor, rows=rb * factor)
-        imgs.append(img.reshape(rb, factor, opts.width, factor, 3)
-                    .mean(dim=(1, 3)))
-        sums = counts if sums is None else [a + b for a, b in zip(sums,
-                                                                  counts)]
-    return (torch.cat(imgs), *sums)
+    with span("rt.frame"):
+        if factor < 1:
+            raise ValueError(f"ssaa factor must be ≥ 1, got {factor}")
+        hi = dataclasses.replace(opts, width=opts.width * factor,
+                                 height=opts.height * factor)
+        band_rows = opts.height if band_rows is None else min(band_rows,
+                                                              opts.height)
+        device = torch.device(device)
+        scene = scene.to(device)
+        camera = camera.to(device)
+        imgs = []
+        sums = None
+        for r0 in range(0, opts.height, band_rows):
+            rb = min(band_rows, opts.height - r0)
+            img, *counts = render(scene, camera, hi, device=device,
+                                  count_rays=count_rays, tracer=tracer,
+                                  row0=r0 * factor, rows=rb * factor)
+            imgs.append(img.reshape(rb, factor, opts.width, factor, 3)
+                        .mean(dim=(1, 3)))
+            sums = counts if sums is None else [a + b for a, b in zip(sums,
+                                                                      counts)]
+        return (torch.cat(imgs), *sums)
 
 
 def render_image(scene: Scene, camera: Camera, opts: RenderOptions, *,
@@ -593,8 +613,9 @@ def value_and_grad_bands(band_fn, params, opts, target, bands, *, device):
         with torch.enable_grad():
             img = band_fn(leaves, r0, rb)
             loss = ((img - target[r0:r0 + rb]) ** 2).sum() / denom
-            g = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+            with span("rt.backward"):
+                g = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
         val = val + loss.detach()
         for k, gk in zip(leaves, g):
             if gk is not None:
@@ -615,16 +636,17 @@ def value_and_grad_banded(apply_params, params, scene: Scene, camera: Camera,
     `device`) into the device copy of `scene`. → (loss [] f32, {name:
     gradient}) on `device`.
     """
-    band_rows = opts.height if band_rows is None else min(band_rows,
-                                                          opts.height)
-    device = torch.device(device)
-    dscene, dcam = scene.to(device), camera.to(device)
+    with span("rt.value_and_grad"):
+        band_rows = opts.height if band_rows is None else min(band_rows,
+                                                              opts.height)
+        device = torch.device(device)
+        dscene, dcam = scene.to(device), camera.to(device)
 
-    def band(leaves, r0, rb):
-        return render(apply_params(dscene, leaves), dcam, opts,
-                      device=device, tracer=tracer, row0=r0, rows=rb)[0]
+        def band(leaves, r0, rb):
+            return render(apply_params(dscene, leaves), dcam, opts,
+                          device=device, tracer=tracer, row0=r0, rows=rb)[0]
 
-    bands = [(r0, min(band_rows, opts.height - r0))
-             for r0 in range(0, opts.height, band_rows)]
-    return value_and_grad_bands(band, params, opts, target, bands,
-                                device=device)
+        bands = [(r0, min(band_rows, opts.height - r0))
+                 for r0 in range(0, opts.height, band_rows)]
+        return value_and_grad_bands(band, params, opts, target, bands,
+                                    device=device)

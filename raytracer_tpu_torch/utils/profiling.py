@@ -1,11 +1,27 @@
-"""Profiling and timing hooks (counterpart of
-`raytracer_tpu/utils/profiling.py`) on torch.profiler.
+"""Profiling hooks (counterpart of `raytracer_tpu/utils/profiling.py`) on
+torch.profiler, and the program's own spans and lane counters.
 
 `xprof_trace` writes a Chrome/Perfetto trace (`*.pt.trace.json`, open it in
 https://ui.perfetto.dev or chrome://tracing) and `top_ops` ranks the events
-of the traces under a directory. `Timer` and `timed` are wall clocks that
-wait for the card. The device is always explicit: nothing here looks for a
-GPU by itself.
+of the traces under a directory. The device is always explicit: nothing
+here looks for a GPU by itself.
+
+`span(name)` marks a layer of the program. While a torch.profiler
+records, the span is a `record_function` range in the same trace as the
+kernels it launches (their runtime calls fall inside it, so a kernel is
+matched to its span by correlation id). Until a span first runs under a
+profiler, each span adds its host time to a per-name aggregate
+(`spans()`): torch's profiler leaves the process slower after its session
+(an H100 config4 1080p frame ~93 ms after it, ~71 ms in a process it never
+ran in), so the aggregate holds only host times the profiler has not
+touched. While a profiler records, `count_lanes`
+adds a bounce's live and dispatched search lanes to device-side counts
+(`counters()`); otherwise it does nothing. The names the renderer uses:
+`rt.frame`, `rt.bounce.<d>`, `rt.search`, `rt.shadow`, `rt.surface`,
+`rt.shade`, `rt.spawn`, `rt.count` (the lane sums), `rt.compact`,
+`rt.value_and_grad`, `rt.record`, `rt.replay`, `rt.backward`; lane kinds
+`nearest.b<d>` and `shadow.b<d>`. A trace tells units (frames, steps)
+apart by their order.
 """
 
 import collections
@@ -14,6 +30,7 @@ import glob
 import gzip
 import json
 import os
+import threading
 import time
 
 import torch
@@ -21,11 +38,10 @@ import torch
 # Chrome-trace categories of the work the card itself runs
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
-
-def _sync(device) -> None:
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+_SPANS: dict = {}   # name → [count, total ns, first ns]
+_PROFILED = False   # a span has run under a profiler since the last reset
+_LANES: dict = {}   # (depth, lights) → [live lanes [1 + lights], dispatched]
+_LOCK = threading.Lock()  # spans end on autograd's threads too
 
 
 @contextlib.contextmanager
@@ -50,64 +66,102 @@ def xprof_trace(logdir: str, *, device):
         yield prof
 
 
-class Timer:
-    """Wall-clock timer of a block that waits on exit for the work queued
-    on `device` (a CUDA device is synchronized; the CPU runs eagerly)."""
+def counting() -> bool:
+    """Whether a torch.profiler session records, so that spans enter
+    ranges and `count_lanes` counts."""
+    return torch.autograd._profiler_enabled()
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.t0 = None
-        self.elapsed = 0.0
+
+class span:
+    """Context manager: the block is the layer `name`.
+
+    While a torch.profiler records, enters
+    `torch.profiler.record_function(name)`, and the host aggregate stops
+    until `reset()`. With no profiler recording only the gate check and
+    the host aggregate remain: `record_function` costs microseconds even
+    then.
+    """
+
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        global _PROFILED
+        self._rf = None
+        if counting():
+            _PROFILED = True
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        _sync(self.device)
-        self.elapsed = time.perf_counter() - self.t0
+        dt = time.perf_counter_ns() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        elif not _PROFILED:
+            with _LOCK:
+                agg = _SPANS.get(self.name)
+                if agg is None:
+                    _SPANS[self.name] = [1, dt, dt]
+                else:
+                    agg[0] += 1
+                    agg[1] += dt
+        return False
 
 
-def _block(out):
-    """Wait for every CUDA device that holds a tensor of `out` (a tensor or
-    nested tuples, lists and dicts of them)."""
-    devices, todo = set(), [out]
-    while todo:
-        x = todo.pop()
-        if isinstance(x, torch.Tensor):
-            devices.add(x.device)
-        elif isinstance(x, dict):
-            todo.extend(x.values())
-        elif isinstance(x, (tuple, list)):
-            todo.extend(x)
-    for d in devices:
-        _sync(d)
+def count_lanes(depth: int, live, width: int) -> None:
+    """While a profiler records: add bounce `depth`'s live lanes to its
+    device-side counts, with no host sync. `live` [1 + lights] holds the
+    nearest search's, then each light's shadow search's; each search
+    dispatched `width` lanes. Otherwise nothing: no kernel, no count."""
+    if not counting():
+        return
+    key = (depth, live.shape[0] - 1)
+    with _LOCK:
+        c = _LANES.get(key)
+        if c is None:
+            _LANES[key] = [live.clone(), width]
+        else:
+            c[0].add_(live)
+            c[1] += width
+
+
+def spans() -> dict:
+    """{name: {"count", "total_ns", "first_ns"}}: each span's host time
+    over every thread from the last `reset()` until a span first ran under
+    a profiler; "first_ns" is its first end's."""
+    with _LOCK:
+        return {k: {"count": n, "total_ns": t, "first_ns": f}
+                for k, (n, t, f) in _SPANS.items()}
+
+
+def counters() -> dict:
+    """{kind: (live lanes, dispatched lanes)} counted by `count_lanes`
+    since the last `reset()`: `nearest.b<d>` and `shadow.b<d>` (every
+    light's); reads the device counts back."""
+    with _LOCK:
+        lanes = [(k, live, sent) for k, (live, sent) in _LANES.items()]
+    out = {}
+    for (depth, lights), live, sent in lanes:
+        near, *shadow = live.tolist()
+        for kind, n, m in ((f"nearest.b{depth}", near, sent),
+                           (f"shadow.b{depth}", sum(shadow), sent * lights)):
+            a, b = out.get(kind, (0, 0))
+            out[kind] = (a + n, b + m)
     return out
 
 
-def timed(fn, *args, repeats: int = 3, inner: int | None = None):
-    """Best-of-N amortized wall time of fn(*args), after a warm-up →
-    (last output, seconds).
-
-    Issues `inner` back-to-back calls and waits once for the devices of the
-    outputs: robust against the jitter of asynchronous launches (one
-    synchronize per call can under- or over-state sub-ms work). No
-    device→host readbacks. `inner` auto-scales so that one repeat costs
-    ~0.5 s (long calls get inner=1)."""
-    _block(fn(*args))  # warm-up: kernel builds, allocator growth
-    t0 = time.perf_counter()
-    out = _block(fn(*args))  # calibration run
-    t_cal = time.perf_counter() - t0
-    if inner is None:
-        inner = max(1, min(8, int(0.5 / max(t_cal, 1e-4))))
-    best = t_cal
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(inner):
-            out = fn(*args)
-        _block(out)
-        best = min(best, (time.perf_counter() - t0) / inner)
-    return out, best
+def reset() -> None:
+    """Clear the span aggregates and the lane counts; the aggregates take
+    spans again."""
+    global _PROFILED
+    _PROFILED = False
+    with _LOCK:
+        _SPANS.clear()
+        _LANES.clear()
 
 
 def trace_events(trace_dir: str) -> list:

@@ -175,6 +175,6 @@ def test_shade_diffuse_matches_reference():
     psurf = trace.Surface(**{k: tt(getattr(surf, k)) for k in (
         "valid", "t", "p", "n", "albedo", "mtype", "kd", "ks", "spec_n",
         "ior")})
-    got = shade.shade_diffuse(pscene, psurf, torch.from_numpy(d), opts.bias,
-                              opts.t_min, opts.tri_chunk)
+    got, _ = shade.shade_diffuse(pscene, psurf, torch.from_numpy(d),
+                                 opts.bias, opts.t_min, opts.tri_chunk)
     _close(got, want)

@@ -134,7 +134,7 @@ def test_shade_diffuse_tie_gradients_match_jax():
                              **{k: torch.from_numpy(v)
                                 for k, v in fixed.items()})
         return shade.shade_diffuse(pscene, surf, d, opts.bias, opts.t_min,
-                                   opts.tri_chunk)
+                                   opts.tri_chunk)[0]
 
     want, have = _grads(jfn, tfn, args)
     names = ("p", "n", "in_dir", "albedo", "kd", "ks", "spec_n")

@@ -187,15 +187,6 @@ def test_top_ops_without_a_trace_raises(tmp_path):
         profiling.top_ops(str(tmp_path))
 
 
-def test_timed_and_timer():
-    x = torch.randn(256, 256)
-    out, secs = profiling.timed(torch.mm, x, x, repeats=2)
-    assert secs > 0 and torch.equal(out, x @ x)
-    with profiling.Timer("cpu") as t:
-        torch.mm(x, x)
-    assert t.elapsed > 0
-
-
 # ----------------------------------------------------------------- flags ----
 
 
