@@ -58,6 +58,12 @@ class PlanTracer:
         self._bounce = -1
         self._light = 0
 
+    @property
+    def bounces(self) -> int:
+        """The bounces the plan holds: `renderer.render_rays` replays as
+        many, and reads nothing back from the device to end sooner."""
+        return len(self._wins)
+
     @staticmethod
     def for_plan(plan, n_spheres: int, n_planes: int,
                  max_depth: int | None = None, glass: bool = False):

@@ -212,6 +212,10 @@ class ShardTracer:
     TraceGeom; the partial (t, kind, idx) are all-gathered over the prims
     group (one i32 gather, t carried as its bits) and min-combined."""
 
+    # every rank of the prims group has to search each bounce together:
+    # renderer.render_rays keeps the fixed depth for such a tracer
+    collective_search = True
+
     def __init__(self, local_geom: TraceGeom, mesh, sizes,
                  accel: ShardBVH | None = None):
         self._g = local_geom
@@ -247,6 +251,8 @@ class RingTracer:
     BVH tables) travels around the prims ring, one step per shard, and a
     running min-hit folds each step's result. Only one shard is resident at
     a time, for scenes larger than one device's memory."""
+
+    collective_search = True  # as ShardTracer's
 
     def __init__(self, local_geom: TraceGeom, mesh, sizes,
                  accel: ShardBVH | None = None):

@@ -31,6 +31,16 @@ its activations: `remat_policy="plan"` records the tile's plan (the winner
 ids and shadow bits) once under `no_grad` and checkpoints only the shading
 replay of that plan, so the backward never re-runs a search; `"full"`
 checkpoints the whole tile, searches included.
+
+The bounce loop ends at the first child wavefront with no live lane: after
+each bounce that spawns children it reads one bool back from the device
+(`rt.alive`). A bounce with no live lane adds exactly zero to every
+radiance, ray count and gradient, so the result is the fixed-depth loop's
+bit for bit. Three loops read nothing and keep their depth: a plan replay
+(`ops/replay.PlanTracer`) runs the bounces its plan holds, a tracer whose
+searches are collectives (`collective_search`, `parallel/tracer.py`)
+runs every bounce on every rank, and `render(record_plan=True)` records
+every bounce's planes.
 """
 
 from __future__ import annotations
@@ -237,7 +247,7 @@ def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts,
 
 def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
                 count_rays: bool = False, tracer=None,
-                record_plan: bool = False):
+                record_plan: bool = False, *, every_bounce: bool = False):
     """Trace a wavefront of primary rays to radiance [N,3] (unclamped).
 
     `scene` is a device scene (`Scene.to`) on the rays' device; `tracer`
@@ -251,9 +261,20 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
     (`use_compact`), `dropped` (0-dim f32: alive lanes lost to the cap)
     comes last: (radiance, traced[, wins, occs], dropped).
 
-    Only a buffer's static width decides whether a bounce compacts, so the
-    loop reads nothing back from the device. The first compaction numbers
-    the lanes by their uncompacted slots; before it slot i is lane i.
+    Only a buffer's static width decides whether a bounce compacts. The
+    first compaction numbers the lanes by their uncompacted slots; before
+    it slot i is lane i.
+
+    After each bounce that spawns children the loop reads back whether the
+    child wavefront (compacted, if the bounce compacted) holds a live lane,
+    and ends if it holds none: the plan then holds only the bounces that
+    ran. It reads nothing and keeps its depth for a plan replay (a tracer
+    with `bounces`: it runs as many bounces as the plan holds), for a
+    tracer whose searches are collectives (`collective_search`: a rank that
+    stopped alone would leave its peers waiting), and with `every_bounce`
+    (`render(record_plan=True)`: a dead bounce's occlusion plane holds what
+    the sphere and plane tests found on its dead lanes' rays, which only
+    running it gives).
     """
     if getattr(tracer, "per_trace_cursor", False):
         # depth-aware tracers (accel.cull.CullTracer) map their call counter
@@ -271,7 +292,11 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
     cap = _cap_lanes(opts.compact_cap, n0) if compact else 0
     dropped = torch.zeros((), dtype=torch.float32, device=dev)
     slot, n_slots = None, n0
-    for depth in range(opts.max_depth + 1):
+    n_bounces = min(opts.max_depth + 1,
+                    getattr(tracer, "bounces", opts.max_depth + 1))
+    read_alive = not (every_bounce or hasattr(tracer, "bounces")
+                      or getattr(tracer, "collective_search", False))
+    for depth in range(n_bounces):
         # the bounce's own time: the folds and the radiance sums
         with span(f"rt.bounce.{depth}"):
             terms, state, inc = bounce_step(
@@ -295,6 +320,10 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
                 state, slot, drop = _compact(tuple(state), slot, cap)
             dropped = dropped + drop
         state = tuple(state)
+        if read_alive:
+            with span("rt.alive"):
+                if not bool(state[3].any()):
+                    break
     out = (radiance, traced)
     if record_plan:
         out += (tuple(w for w, _ in plan), tuple(o for _, o in plan))
@@ -324,7 +353,9 @@ def _plan_remat_tile(scene, orig, direc, opts, count_rays, tracer):
     The replay's PlanTracer is built inside the checkpointed function, so
     the backward's recompute gets fresh cursors. A compacted tile's planes
     are in its compacted lane order; the replay recomputes the same alive
-    masks from the same values, hence the same compaction."""
+    masks from the same values, hence the same compaction. The record ends
+    where the tile's lanes die, and the replay runs the bounces it
+    recorded, reading nothing back."""
     from raytracer_tpu_torch.ops.replay import PlanTracer
 
     with torch.no_grad(), span("rt.record"):
@@ -477,7 +508,7 @@ def render(scene: Scene, camera: Camera, opts: RenderOptions, *, device,
             if record_plan:
                 rad, inc, w_t, o_t = render_rays(
                     scene, orig, dirs[s:s + tile], opts, count_rays,
-                    tracer=tracer, record_plan=True)
+                    tracer=tracer, record_plan=True, every_bounce=True)
                 wins.append(w_t)
                 occs.append(o_t)
             else:

@@ -149,6 +149,40 @@ def test_grid_tracer_as_data_parallelism(group):
     assert float(res[0]["traced"]) == float(traced)
 
 
+def test_lanes_dying_at_different_depths(group):
+    """bumpy config4 to depth 4 on a (2, 2) layout, whose tiles' lanes die
+    after bounce 0 or 1: every tracer's frame finishes and equals the
+    single-device render bit for bit. The collective tracers (ShardTracer,
+    RingTracer) run every bounce of every tile and read nothing back; the
+    replicated grid ends each tile at its first bounce with no live child,
+    each rank on its own."""
+    scene, cam, opts = W.bumpy_config4()
+    opts = dataclasses.replace(opts, max_depth=4)
+    tracer = GridTracer.build(scene, "cpu")
+    want = {"grid": render(scene, cam, opts, device="cpu", tracer=tracer,
+                           count_rays=True),
+            "shard": render(scene, cam, opts, device="cpu",
+                            count_rays=True)}
+    want["ring"] = want["shard"]
+    res = group.every_rank("depths")
+    for name in ("shard", "ring", "grid"):
+        assert_ranks_equal([{k: v for k, v in r.items() if k == f"img_{name}"}
+                            for r in res])
+        np.testing.assert_array_equal(res[0][f"img_{name}"],
+                                      want[name][0].numpy(), err_msg=name)
+        assert float(res[0][f"traced_{name}"]) == float(want[name][1])
+    tiles = res[0]["bounces_shard"][0]
+    for r in res:
+        for name in ("shard", "ring"):
+            assert r[f"bounces_{name}"].tolist() == [tiles] * 5, name
+            assert int(r[f"reads_{name}"]) == 0, name
+        b = r["bounces_grid"].tolist()
+        assert b[0] == tiles and b[2:] == [0, 0, 0]
+        assert int(r["reads_grid"]) == b[0] + b[1]
+    # some tiles end after bounce 0, others after bounce 1
+    assert 0 < sum(int(r["bounces_grid"][1]) for r in res) < tiles * WORLD
+
+
 def test_compacted_glass_equals_single_device(group):
     scene, cam, opts = presets.config3_cornell()
     opts = dataclasses.replace(opts, width=32, height=24, max_depth=3,

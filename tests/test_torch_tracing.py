@@ -70,22 +70,36 @@ def _inside(e, outer):
             and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] + EPS_US)
 
 
+def _ran(count):
+    """[bounces run at each depth] from `count(name)` of the `rt.bounce.<d>`
+    spans: every tile runs bounce 0, and a tile ends its loop at the first
+    bounce whose children hold no live lane."""
+    ran = [count(f"rt.bounce.{d}") for d in range(DEPTH + 1)]
+    tiles = len(block_perm(H, W, *BLOCK)[0]) // (BLOCK[0] * BLOCK[1])
+    assert ran[0] == tiles
+    assert all(a >= b for a, b in zip(ran, ran[1:]))
+    return ran
+
+
 def test_a_frame_trace_nests_each_bounce_search_and_shadow(traced):
     _, scene, _, _, _, events, _ = traced
     frames = _named(events, "rt.frame")
     assert len(frames) == 1
     frame = frames[0]
-    tiles = len(block_perm(H, W, *BLOCK)[0]) // (BLOCK[0] * BLOCK[1])
+    ran = _ran(lambda name: len(_named(events, name)))
+    assert ran[1] > 0 and ran[DEPTH] == 0   # the mirror's bounce, no deeper
     searches = _named(events, "rt.search")
     shadows = _named(events, "rt.shadow")
     for d in range(DEPTH + 1):
-        bounces = _named(events, f"rt.bounce.{d}")
-        assert len(bounces) == tiles
-        for b in bounces:
+        for b in _named(events, f"rt.bounce.{d}"):
             assert _inside(b, frame)
             assert sum(_inside(s, b) for s in searches) == 1
             assert sum(_inside(s, b) for s in shadows) == scene.lights.count
-    assert len(shadows) == tiles * (DEPTH + 1) * scene.lights.count
+    assert len(shadows) == sum(ran) * scene.lights.count
+    # one read of the children's lanes after each bounce that spawns them
+    reads = _named(events, "rt.alive")
+    assert len(reads) == sum(ran) - ran[DEPTH]
+    assert all(_inside(r, frame) for r in reads)
     aten = [e for e in events
             if e.get("cat") == "cpu_op" and e["name"].startswith("aten::")]
     assert aten and all(_inside(e, frame) for e in aten)
@@ -98,7 +112,7 @@ class _Untouchable:
 
 def test_off_the_profiler_spans_enter_no_range_and_lanes_are_not_counted(
         traced, monkeypatch):
-    _, scene, cam, opts, tracer, _, _ = traced
+    _, scene, cam, opts, tracer, events, _ = traced
 
     def no_range(*args, **kwargs):
         raise AssertionError("record_function entered with no profiler")
@@ -112,16 +126,19 @@ def test_off_the_profiler_spans_enter_no_range_and_lanes_are_not_counted(
     assert profiling.counters() == {}
     seen = profiling.spans()
     assert seen["rt.test"]["count"] == 1 and seen["rt.frame"]["count"] == 1
-    tiles = len(block_perm(H, W, *BLOCK)[0]) // (BLOCK[0] * BLOCK[1])
-    assert seen["rt.search"]["count"] == tiles * (DEPTH + 1)
-    assert seen["rt.shadow"]["count"] == (tiles * (DEPTH + 1)
-                                          * scene.lights.count)
+    ran = _ran(lambda name: seen.get(name, {"count": 0})["count"])
+    # the bounces the profiled frame ran
+    assert ran == [len(_named(events, f"rt.bounce.{d}"))
+                   for d in range(DEPTH + 1)]
+    assert seen["rt.search"]["count"] == sum(ran)
+    assert seen["rt.shadow"]["count"] == sum(ran) * scene.lights.count
+    assert seen["rt.alive"]["count"] == sum(ran) - ran[DEPTH]
     frame = seen["rt.frame"]
     assert 0 < frame["first_ns"] == frame["total_ns"]
 
 
 def test_live_lanes_match_the_reference_counts_and_padding(traced):
-    cfg, scene, _, _, _, _, counters = traced
+    cfg, scene, _, _, _, events, counters = traced
     ref = count_frame(cfg, "cpu")
     perm, _ = block_perm(H, W, *BLOCK)
     n_pad = int((perm >= H * W).sum())
@@ -139,17 +156,23 @@ def test_live_lanes_match_the_reference_counts_and_padding(traced):
         return seq[d] if d < len(seq) else zero
 
     lights = scene.lights.count
+    ran = _ran(lambda name: len(_named(events, name)))
+    tile = BLOCK[0] * BLOCK[1]
     for d in range(DEPTH + 1):
-        live, sent = counters[f"nearest.b{d}"]
-        assert sent == len(perm)
-        assert live == at(ref["nearest"], d) + at(pad["nearest"], d)
-        live_s, sent_s = counters[f"shadow.b{d}"]
-        assert sent_s == len(perm) * lights
+        want_near = at(ref["nearest"], d) + at(pad["nearest"], d)
         want = sum(at(ref["shadow"], d, [0] * lights)) \
             + sum(at(pad["shadow"], d, [0] * lights))
+        if not ran[d]:
+            # a bounce that did not run: the reference holds no lane there
+            assert f"nearest.b{d}" not in counters
+            assert want_near == want == 0, d
+            continue
+        live, sent = counters[f"nearest.b{d}"]
+        assert sent == ran[d] * tile
+        assert live == want_near > 0
+        live_s, sent_s = counters[f"shadow.b{d}"]
+        assert sent_s == ran[d] * tile * lights
         assert abs(live_s - want) <= max(0.005 * want, 2), (d, live_s, want)
-        if d >= len(ref["nearest"]):
-            assert live == live_s == 0
     assert len(ref["nearest"]) < DEPTH + 1   # later bounces hold no lane
 
 
@@ -262,6 +285,7 @@ def test_readers_match_device_time_to_the_enclosing_span(name, want):
 @pytest.mark.parametrize("name,span_name", [
     ("frame_loop.host_ms_per_frame", "rt.frame"),
     ("replay.backward_host_ms", "rt.backward"),
+    ("frame_loop.alive_wait_ms", "rt.alive"),
 ])
 def test_host_readers_take_the_untraced_units_of_the_aggregate(
         name, span_name, monkeypatch):
@@ -279,3 +303,24 @@ def test_host_readers_take_the_untraced_units_of_the_aggregate(
     # the parent program keeps no aggregate: nothing read, nothing raised
     monkeypatch.delattr(profiling, "spans")
     assert reader.read(tr, None) is None
+
+
+def test_frame_loop_readers_count_a_frames_bounces_and_reads(monkeypatch):
+    # a frame of two bounces, each followed by a read; a third bounce ends
+    # after the profiled unit, outside its window
+    tr = _trace([("rt.frame", 100.0, 500.0), ("rt.bounce.0", 110.0, 200.0),
+                 ("rt.alive", 310.0, 5.0), ("rt.bounce.1", 320.0, 200.0),
+                 ("rt.alive", 530.0, 5.0), ("rt.bounce.2", 900.0, 200.0)],
+                [], [])
+    bounces = harness.load_module("metrics", "frame_loop.bounces_per_frame.py")
+    assert bounces.read(tr, None) == 2.0
+    wait = harness.load_module("metrics", "frame_loop.alive_wait_ms.py")
+    # before the profiler: the first read took 1 ms, nine more 0.25 ms each
+    monkeypatch.setattr(profiling, "spans", lambda: {
+        "rt.alive": {"count": 10, "total_ns": 1_000_000 + 2_250_000,
+                     "first_ns": 1_000_000}})
+    np.testing.assert_allclose(wait.read(tr, None), 0.5, rtol=1e-6)
+    # the parent program has no such spans: nothing read, nothing raised
+    bare = _trace([("rt.frame", 100.0, 500.0)], [], [])
+    monkeypatch.setattr(profiling, "spans", lambda: {})
+    assert bounces.read(bare, None) is None and wait.read(bare, None) is None

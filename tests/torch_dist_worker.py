@@ -133,6 +133,31 @@ def run_cases(out_dir: str, rank: int):
         return out
     case("bvh", bvh)
 
+    def depths():
+        """bumpy config4 to depth 4: the mirror sphere's lanes die after
+        bounce 1, the others' after bounce 0. Each search's bounces run
+        (the span aggregate's `rt.bounce.<d>` counts) and reads (`rt.alive`)
+        on this rank."""
+        from raytracer_tpu_torch.utils import profiling
+
+        opts = dataclasses.replace(opts4, max_depth=4)
+        out = {}
+        for name, kw in (("shard", {}), ("ring", {"ring": True}),
+                         ("grid", {"tracer": GridTracer.build(scene4, DEV)})):
+            profiling.reset()
+            img, traced = render_sharded(scene4, cam4, opts, mesh(2, 2),
+                                         count_rays=True, device=DEV, **kw)
+            seen = profiling.spans()
+            out[f"img_{name}"] = img
+            out[f"traced_{name}"] = traced
+            out[f"bounces_{name}"] = np.array(
+                [seen.get(f"rt.bounce.{d}", {"count": 0})["count"]
+                 for d in range(opts.max_depth + 1)])
+            out[f"reads_{name}"] = np.array(
+                seen.get("rt.alive", {"count": 0})["count"])
+        return out
+    case("depths", depths)
+
     def glass():
         scene, cam, opts = presets.config3_cornell()
         opts = dataclasses.replace(opts, width=32, height=24, max_depth=3,
