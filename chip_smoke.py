@@ -2791,14 +2791,6 @@ def md_counts(reset: bool = False) -> dict:
     return out
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def in_turns(fns, n=MD_FRAMES):
     """Host seconds of `n` runs of each of `fns`, in turns, each run ended by
     a synchronize, after one warm-up each → [(median, all)] per fn."""
@@ -2829,16 +2821,16 @@ def md_launched(say, path: str, kernels, launches: dict) -> dict:
     return got
 
 
-def multidevice_rank(rank: int, world: int, port: int, out_path=None):
-    """One rank of the multi-device phase, on cuda:<rank>, in an NCCL group
-    of `world` ranks → its launches per kernel and path, errors and times
-    (written as JSON to `out_path` when given). Rank 0 prints."""
+def multidevice_rank(device, out_dir=None):
+    """One rank of the multi-device phase, on its card `device`, in the NCCL
+    group it has joined → its launches per kernel and path, errors and
+    times (written as JSON to `out_dir`/multidevice_rank<rank>.json when
+    given). Rank 0 prints."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    from raytracer_tpu_torch.parallel.mesh import (init_distributed,
-                                                   make_rt_mesh)
+    from raytracer_tpu_torch.parallel.mesh import make_rt_mesh
     from raytracer_tpu_torch.parallel.overlap import (float_partition,
                                                       make_loss_and_grad)
     from raytracer_tpu_torch.parallel.shard import (build_sharded_accel,
@@ -2846,159 +2838,156 @@ def multidevice_rank(rank: int, world: int, port: int, out_path=None):
     from raytracer_tpu_torch.renderer import render, value_and_grad_banded
     from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
 
-    device = torch.device("cuda", rank)
+    rank, world = dist.get_rank(), dist.get_world_size()
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     say = (lambda *a: print(*a, flush=True)) if rank == 0 else \
         (lambda *a: None)
-    init_distributed(f"localhost:{port}", world, rank, device=device)
     say(f"process group: {dist.get_backend()}, world size "
         f"{dist.get_world_size()}, rank {rank} on {device}")
     assert dist.get_backend() == "nccl", dist.get_backend()
     launches, res = {}, {"rank": rank}
-    try:
-        mesh_t = make_rt_mesh(tiles=world, prims=1)
-        mesh_p = make_rt_mesh(tiles=1, prims=world)
-        scene, cam, opts = load_scene_cli("config4")
-        dscene = scene.to(device)
-        tag = (f"config4 {opts.width}x{opts.height} d{opts.max_depth}, "
-               f"{scene.meshes.count} triangles")
+    mesh_t = make_rt_mesh(tiles=world, prims=1)
+    mesh_p = make_rt_mesh(tiles=1, prims=world)
+    scene, cam, opts = load_scene_cli("config4")
+    dscene = scene.to(device)
+    tag = (f"config4 {opts.width}x{opts.height} d{opts.max_depth}, "
+           f"{scene.meshes.count} triangles")
 
-        # grid: replicated GridTracer, tiles = world size
-        grid = build_tracer(scene, "grid", device)
-        want, want_n = render(dscene, cam, opts, device=device, tracer=grid,
-                              count_rays=True)
+    # grid: replicated GridTracer, tiles = world size
+    grid = build_tracer(scene, "grid", device)
+    want, want_n = render(dscene, cam, opts, device=device, tracer=grid,
+                          count_rays=True)
+    md_counts(reset=True)
+    got, got_n = render_sharded(dscene, cam, opts, mesh_t,
+                                count_rays=True, tracer=grid,
+                                device=device)
+    torch.cuda.synchronize()
+    path = f"render_sharded {tag}, GridTracer, tiles={world}"
+    md_launched(say, path, ("grid_walk",), launches)
+    same = torch.equal(got, want) and float(got_n) == float(want_n)
+    say(f"{path}: image and traced ({float(got_n):.6g}) equal to the "
+        f"single-device render: {same}")
+    assert same, path
+    (t1, a1), (ts, a_s) = in_turns([
+        lambda: render(dscene, cam, opts, device=device, tracer=grid,
+                       count_rays=True),
+        lambda: render_sharded(dscene, cam, opts, mesh_t, count_rays=True,
+                               tracer=grid, device=device)])
+    say(f"{path}: {ts:.4f} s (median of {MD_FRAMES}; "
+        f"{', '.join(f'{t:.4f}' for t in a_s)}) against the "
+        f"single-device frame {t1:.4f} s ("
+        f"{', '.join(f'{t:.4f}' for t in a1)}), in turns")
+    res["grid_s"], res["grid_single_s"] = ts, t1
+
+    # bvh: one BVH per primitive shard, prims = world size
+    bvh = build_tracer(scene, "bvh", device)
+    want, want_n = render(dscene, cam, opts, device=device, tracer=bvh,
+                          count_rays=True)
+    md_counts(reset=True)
+    got, got_n = render_sharded(dscene, cam, opts, mesh_p, accel="bvh",
+                                count_rays=True, device=device)
+    torch.cuda.synchronize()
+    path = f"render_sharded {tag}, accel=bvh, prims={world}"
+    md_launched(say, path, ("bvh_walk",), launches)
+    diff = (got - want).abs().amax(dim=-1)
+    n_diff = int((diff > 0).sum())
+    bad = float((diff > IMG_TOL).float().mean())
+    say(f"{path}: vs the single-device --tracer bvh frame {n_diff} "
+        f"pixels differ, {bad:.4%} by > {IMG_TOL}; traced "
+        f"{float(got_n):.6g} vs {float(want_n):.6g}")
+    assert bad <= IMG_BAD, path
+    t0 = time.perf_counter()
+    stacked = build_sharded_accel(scene, world)
+    build_s = time.perf_counter() - t0
+    (t1, a1), (ts, a_s) = in_turns([
+        lambda: render(dscene, cam, opts, device=device, tracer=bvh,
+                       count_rays=True),
+        lambda: render_sharded(dscene, cam, opts, mesh_p, accel=stacked,
+                               count_rays=True, device=device)])
+    say(f"{path}: {ts:.4f} s (median of {MD_FRAMES}, the per-shard BVH "
+        f"stack prebuilt in {build_s:.3f} s; "
+        f"{', '.join(f'{t:.4f}' for t in a_s)}) against the "
+        f"single-device BVHTracer frame {t1:.4f} s ("
+        f"{', '.join(f'{t:.4f}' for t in a1)}), in turns")
+    res["bvh_s"], res["bvh_single_s"] = ts, t1
+    res["bvh_diff_px"] = n_diff
+    del bvh, grid, stacked
+
+    # the sharded fused step: K1's live plan + K2 on a band per rank
+    res["fused"] = {}
+    for ftag, name, w, h, depth in (
+            ("config2 1920x1080 d2", "config2", 1920, 1080, 2),
+            ("config3 1024x1024 d4", "config3", 0, 0, None)):
+        fw, target = train_case(name, device, w, h, depth)
+        l1, g1, _ = fw.plan_value_and_grad(target)
         md_counts(reset=True)
-        got, got_n = render_sharded(dscene, cam, opts, mesh_t,
-                                    count_rays=True, tracer=grid,
-                                    device=device)
+        ls, gs = fw.plan_value_and_grad_sharded(target, mesh_t)
         torch.cuda.synchronize()
-        path = f"render_sharded {tag}, GridTracer, tiles={world}"
-        md_launched(say, path, ("grid_walk",), launches)
-        same = torch.equal(got, want) and float(got_n) == float(want_n)
-        say(f"{path}: image and traced ({float(got_n):.6g}) equal to the "
-            f"single-device render: {same}")
-        assert same, path
-        (t1, a1), (ts, a_s) = in_turns([
-            lambda: render(dscene, cam, opts, device=device, tracer=grid,
-                           count_rays=True),
-            lambda: render_sharded(dscene, cam, opts, mesh_t, count_rays=True,
-                                   tracer=grid, device=device)])
-        say(f"{path}: {ts:.4f} s (median of {MD_FRAMES}; "
-            f"{', '.join(f'{t:.4f}' for t in a_s)}) against the "
-            f"single-device frame {t1:.4f} s ("
-            f"{', '.join(f'{t:.4f}' for t in a1)}), in turns")
-        res["grid_s"], res["grid_single_s"] = ts, t1
+        path = f"plan_value_and_grad_sharded {ftag}, tiles={world}"
+        md_launched(say, path, ("fused_whitted_live_plan",
+                                "fused_train"), launches)
+        rel = abs(float(ls) - float(l1)) / abs(float(l1))
+        worst = max(float((gs[k] - g1[k]).abs().max())
+                    / (float(g1[k].abs().max()) + 1e-9) for k in g1)
+        ms = cuda_ms(lambda: fw.plan_value_and_grad_sharded(
+            target, mesh_t), MD_STEPS)
+        ms1 = cuda_ms(lambda: fw.plan_value_and_grad(target), MD_STEPS)
+        # the step's one collective alone, on as many floats
+        flat = torch.zeros(1 + sum(g.numel() for g in gs.values()),
+                           device=device)
+        ar_ms = cuda_ms(lambda: dist.all_reduce(
+            flat, group=mesh_t.tiles_group), MD_REDUCES)
+        say(f"{path}: loss {float(ls):.8g} vs single-device "
+            f"{float(l1):.8g} (rel {rel:.3g}), tables within "
+            f"{worst:.3g} of each max; step {ms:.4f} ms against the "
+            f"single-device step {ms1:.4f} ms (CUDA events, mean of "
+            f"{MD_STEPS}); its all_reduce of {flat.numel()} floats "
+            f"alone {ar_ms:.4f} ms (mean of {MD_REDUCES})")
+        assert rel <= MD_LOSS_RTOL and worst <= MD_TABLE_TOL, path
+        res["fused"][ftag] = {"ms": ms, "single_ms": ms1,
+                              "all_reduce_ms": ar_ms}
+        del fw, target
 
-        # bvh: one BVH per primitive shard, prims = world size
-        bvh = build_tracer(scene, "bvh", device)
-        want, want_n = render(dscene, cam, opts, device=device, tracer=bvh,
-                              count_rays=True)
-        md_counts(reset=True)
-        got, got_n = render_sharded(dscene, cam, opts, mesh_p, accel="bvh",
-                                    count_rays=True, device=device)
-        torch.cuda.synchronize()
-        path = f"render_sharded {tag}, accel=bvh, prims={world}"
-        md_launched(say, path, ("bvh_walk",), launches)
-        diff = (got - want).abs().amax(dim=-1)
-        n_diff = int((diff > 0).sum())
-        bad = float((diff > IMG_TOL).float().mean())
-        say(f"{path}: vs the single-device --tracer bvh frame {n_diff} "
-            f"pixels differ, {bad:.4%} by > {IMG_TOL}; traced "
-            f"{float(got_n):.6g} vs {float(want_n):.6g}")
-        assert bad <= IMG_BAD, path
-        t0 = time.perf_counter()
-        stacked = build_sharded_accel(scene, world)
-        build_s = time.perf_counter() - t0
-        (t1, a1), (ts, a_s) = in_turns([
-            lambda: render(dscene, cam, opts, device=device, tracer=bvh,
-                           count_rays=True),
-            lambda: render_sharded(dscene, cam, opts, mesh_p, accel=stacked,
-                                   count_rays=True, device=device)])
-        say(f"{path}: {ts:.4f} s (median of {MD_FRAMES}, the per-shard BVH "
-            f"stack prebuilt in {build_s:.3f} s; "
-            f"{', '.join(f'{t:.4f}' for t in a_s)}) against the "
-            f"single-device BVHTracer frame {t1:.4f} s ("
-            f"{', '.join(f'{t:.4f}' for t in a1)}), in turns")
-        res["bvh_s"], res["bvh_single_s"] = ts, t1
-        res["bvh_diff_px"] = n_diff
-        del bvh, grid, stacked
-
-        # the sharded fused step: K1's live plan + K2 on a band per rank
-        res["fused"] = {}
-        for ftag, name, w, h, depth in (
-                ("config2 1920x1080 d2", "config2", 1920, 1080, 2),
-                ("config3 1024x1024 d4", "config3", 0, 0, None)):
-            fw, target = train_case(name, device, w, h, depth)
-            l1, g1, _ = fw.plan_value_and_grad(target)
-            md_counts(reset=True)
-            ls, gs = fw.plan_value_and_grad_sharded(target, mesh_t)
-            torch.cuda.synchronize()
-            path = f"plan_value_and_grad_sharded {ftag}, tiles={world}"
-            md_launched(say, path, ("fused_whitted_live_plan",
-                                    "fused_train"), launches)
-            rel = abs(float(ls) - float(l1)) / abs(float(l1))
-            worst = max(float((gs[k] - g1[k]).abs().max())
-                        / (float(g1[k].abs().max()) + 1e-9) for k in g1)
-            ms = cuda_ms(lambda: fw.plan_value_and_grad_sharded(
-                target, mesh_t), MD_STEPS)
-            ms1 = cuda_ms(lambda: fw.plan_value_and_grad(target), MD_STEPS)
-            # the step's one collective alone, on as many floats
-            flat = torch.zeros(1 + sum(g.numel() for g in gs.values()),
-                               device=device)
-            ar_ms = cuda_ms(lambda: dist.all_reduce(
-                flat, group=mesh_t.tiles_group), MD_REDUCES)
-            say(f"{path}: loss {float(ls):.8g} vs single-device "
-                f"{float(l1):.8g} (rel {rel:.3g}), tables within "
-                f"{worst:.3g} of each max; step {ms:.4f} ms against the "
-                f"single-device step {ms1:.4f} ms (CUDA events, mean of "
-                f"{MD_STEPS}); its all_reduce of {flat.numel()} floats "
-                f"alone {ar_ms:.4f} ms (mean of {MD_REDUCES})")
-            assert rel <= MD_LOSS_RTOL and worst <= MD_TABLE_TOL, path
-            res["fused"][ftag] = {"ms": ms, "single_ms": ms1,
-                                  "all_reduce_ms": ar_ms}
-            del fw, target
-
-        # the bounce-pipelined backward, config2 1080p d2
-        scene2, cam2, opts2 = load_scene_cli("config2", width=1920,
-                                             height=1080, max_depth=2)
-        d2 = scene2.to(device)
-        target = render_sharded(d2, cam2, opts2, mesh_t,
-                                device=device)[0] * 0.9
-        path = f"make_loss_and_grad config2 1920x1080 d2, tiles={world}"
-        out, steps = {}, {}
-        for ov in (True, False):
-            steps[ov] = make_loss_and_grad(scene2, cam2, opts2, mesh_t,
-                                           overlap=ov, device=device)
-            out[ov] = steps[ov](d2, target)
-        lo, lf = float(out[True][0]), float(out[False][0])
-        go = float_partition(out[True][1])[0]
-        gf = float_partition(out[False][1])[0]
-        worst = max(float(((a - b).abs() - OV_GRAD_RTOL * b.abs()).max())
-                    for a, b in zip(go, gf) if a.numel())
-        big = max(float(a.abs().max()) for a in go if a.numel())
-        p0 = {"center": d2.spheres.center, "albedo": d2.materials.albedo}
-        l1, _ = value_and_grad_banded(with_params, p0, d2, cam2, opts2,
-                                      target, device=device)
-        ms = {ov: cuda_ms(lambda ov=ov: steps[ov](d2, target), MD_STEPS)
-              for ov in (True, False)}
-        say(f"{path}: loss {lo:.8g} overlapped vs {lf:.8g} plain (rel "
-            f"{abs(lo - lf) / lf:.3g}); gradients past rtol {OV_GRAD_RTOL} "
-            f"by at most {worst:.3g} (atol {OV_GRAD_ATOL}; largest "
-            f"{big:.4g}); single-device autograd loss {float(l1):.8g} (rel "
-            f"{abs(lo - float(l1)) / float(l1):.3g}); step {ms[True]:.3f} ms "
-            f"overlapped, {ms[False]:.3f} ms plain (CUDA events, mean of "
-            f"{MD_STEPS})")
-        assert abs(lo - lf) <= OV_LOSS_RTOL * abs(lf), path
-        assert worst <= OV_GRAD_ATOL and big > 1e-6, path
-        assert abs(lo - float(l1)) <= OV_SINGLE_RTOL * abs(float(l1)), path
-        res["overlap_ms"], res["plain_ms"] = ms[True], ms[False]
-        del out, steps, target
-    finally:
-        dist.destroy_process_group()
+    # the bounce-pipelined backward, config2 1080p d2
+    scene2, cam2, opts2 = load_scene_cli("config2", width=1920,
+                                         height=1080, max_depth=2)
+    d2 = scene2.to(device)
+    target = render_sharded(d2, cam2, opts2, mesh_t,
+                            device=device)[0] * 0.9
+    path = f"make_loss_and_grad config2 1920x1080 d2, tiles={world}"
+    out, steps = {}, {}
+    for ov in (True, False):
+        steps[ov] = make_loss_and_grad(scene2, cam2, opts2, mesh_t,
+                                       overlap=ov, device=device)
+        out[ov] = steps[ov](d2, target)
+    lo, lf = float(out[True][0]), float(out[False][0])
+    go = float_partition(out[True][1])[0]
+    gf = float_partition(out[False][1])[0]
+    worst = max(float(((a - b).abs() - OV_GRAD_RTOL * b.abs()).max())
+                for a, b in zip(go, gf) if a.numel())
+    big = max(float(a.abs().max()) for a in go if a.numel())
+    p0 = {"center": d2.spheres.center, "albedo": d2.materials.albedo}
+    l1, _ = value_and_grad_banded(with_params, p0, d2, cam2, opts2,
+                                  target, device=device)
+    ms = {ov: cuda_ms(lambda ov=ov: steps[ov](d2, target), MD_STEPS)
+          for ov in (True, False)}
+    say(f"{path}: loss {lo:.8g} overlapped vs {lf:.8g} plain (rel "
+        f"{abs(lo - lf) / lf:.3g}); gradients past rtol {OV_GRAD_RTOL} "
+        f"by at most {worst:.3g} (atol {OV_GRAD_ATOL}; largest "
+        f"{big:.4g}); single-device autograd loss {float(l1):.8g} (rel "
+        f"{abs(lo - float(l1)) / float(l1):.3g}); step {ms[True]:.3f} ms "
+        f"overlapped, {ms[False]:.3f} ms plain (CUDA events, mean of "
+        f"{MD_STEPS})")
+    assert abs(lo - lf) <= OV_LOSS_RTOL * abs(lf), path
+    assert worst <= OV_GRAD_ATOL and big > 1e-6, path
+    assert abs(lo - float(l1)) <= OV_SINGLE_RTOL * abs(float(l1)), path
+    res["overlap_ms"], res["plain_ms"] = ms[True], ms[False]
+    del out, steps, target
     res["launches"] = launches
-    if out_path is not None:
-        with open(out_path, "w") as f:
+    if out_dir is not None:
+        with open(os.path.join(out_dir, f"multidevice_rank{rank}.json"),
+                  "w") as f:
             json.dump(res, f)
     return res
 
@@ -3007,41 +2996,29 @@ def multidevice_phase() -> dict:
     """The multi-device paths at world size = the card count: in this
     process at one card (a one-rank NCCL group), else one spawned process
     per card. → {kernel: {path: launches summed over the ranks}}."""
-    import multiprocessing as mp
-
     import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel import frames
 
     world = torch.cuda.device_count()
     print(f"{card_line()} × {world}", flush=True)
-    port = free_port()
     if world == 1:
-        results = [multidevice_rank(0, 1, port)]
+        device = frames.join(0, 1, frames.free_address(), "cuda")
+        try:
+            results = [multidevice_rank(device)]
+        finally:
+            dist.destroy_process_group()
     else:
         os.makedirs(OUT, exist_ok=True)
-        paths = [os.path.join(OUT, f"multidevice_rank{r}.json")
-                 for r in range(world)]
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=multidevice_rank,
-                             args=(r, world, port, paths[r]))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        # a rank that fails leaves the others waiting in a collective:
-        # stop them all at the first failure, or at the deadline
-        deadline = time.monotonic() + MD_TIMEOUT_S
-        while (any(p.is_alive() for p in procs)
-               and time.monotonic() < deadline
-               and all(p.exitcode in (None, 0) for p in procs)):
-            time.sleep(0.5)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
-        codes = [p.exitcode for p in procs]
-        assert codes == [0] * world, f"ranks exited {codes}"
+        # a rank that fails leaves the others waiting in a collective: the
+        # launcher stops them all at the first failure, or at the deadline
+        with frames.spawn_ranks(world, multidevice_rank, [OUT]) as ranks:
+            code = ranks.wait(MD_TIMEOUT_S)
+        assert code == 0, f"a rank exited {code}"
         results = []
-        for path in paths:
-            with open(path) as f:
+        for r in range(world):
+            with open(os.path.join(OUT, f"multidevice_rank{r}.json")) as f:
                 results.append(json.load(f))
     total = {}
     for r in results:

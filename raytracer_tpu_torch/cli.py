@@ -21,6 +21,8 @@
       --tile-block 270x480 --trace traces/ --out c4.png
   python -m raytracer_tpu_torch.cli render --config config4 --resilient \\
       --out c4.png
+  python -m raytracer_tpu_torch.cli render --config config4 --cards 4 \\
+      --out c4.png
   python -m raytracer_tpu_torch.cli optimize --kernel --steps 200 \\
       --checkpoint ck/ --supervise --out r.png
 
@@ -36,6 +38,7 @@ import sys
 import time
 
 _CONFIGS = ["config1", "config2", "config3", "config4", "config7"]
+CARDS_TIMEOUT_S = 3600.0   # `render --cards`: the ranks' whole run
 
 
 def _save(path: str, img):
@@ -107,6 +110,85 @@ def _render_resilient(args, kind: str):
     _save(args.out, img)
 
 
+def _render_cards(args, kind: str):
+    """`render --cards N`: the frame split over N ranks of this host
+    (parallel/frames.py), one process a card, rank 0 writing the image;
+    this process only launches them."""
+    from raytracer_tpu_torch.parallel.frames import spawn_ranks
+    from raytracer_tpu_torch.utils.hostload import (NO_DEVICE_EXIT,
+                                                    load_scene_cli)
+
+    n = args.cards
+    refused = [flag for flag, on in (
+        ("--resilient", args.resilient), ("--trace", args.trace),
+        ("--ssaa", args.ssaa > 1), ("--compact", args.compact),
+        ("--tile-block", args.tile_block)) if on]
+    if refused:
+        raise SystemExit(f"--cards {n} does not support {', '.join(refused)}")
+    if kind not in ("auto", "grid", "grid-pallas"):
+        raise SystemExit(f"--cards {n} searches the mesh with the grid "
+                         f"replicated on every card; --tracer {kind} is not "
+                         "supported (use --tracer grid or auto)")
+    import torch
+
+    device_type = torch.device(args.device).type
+    if device_type not in ("cuda", "cpu") or torch.device(args.device).index:
+        raise SystemExit(f"--cards {n} takes --device cuda (cuda:0 … "
+                         f"cuda:{n - 1}) or cpu, not {args.device}")
+    if device_type == "cuda" and torch.cuda.device_count() < n:
+        print(f"--cards {n}: {torch.cuda.device_count()} CUDA card(s) here",
+              file=sys.stderr, flush=True)
+        raise SystemExit(NO_DEVICE_EXIT)
+    scene, _, _ = load_scene_cli(args.config if not args.scene else "",
+                                 args.scene)
+    if not scene.meshes.count:
+        raise SystemExit(f"--cards {n} splits a mesh scene; "
+                         f"{args.scene or args.config} has no mesh")
+    spec = {k: getattr(args, k) for k in ("config", "width", "height",
+                                          "max_depth")}
+    # the ranks may resolve paths elsewhere than the directory typed in
+    spec["out"] = os.path.abspath(args.out)
+    spec["scene"] = os.path.abspath(args.scene) if args.scene else ""
+    t0 = time.perf_counter()
+    with spawn_ranks(n, _cards_rank, [spec],
+                     device_type=device_type) as ranks:
+        code = ranks.wait(CARDS_TIMEOUT_S)
+    if code:
+        print(f"--cards {n}: a rank failed (exit {code}); the others were "
+              "stopped", file=sys.stderr, flush=True)
+        raise SystemExit(code)
+    print(f"--cards {n}: {time.perf_counter() - t0:.2f}s with the ranks' "
+          "start")
+
+
+def _cards_rank(device, spec: dict):
+    """One rank of `render --cards N` (a `spawn_ranks` target): its block of
+    the frame; rank 0 also writes the gathered image."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel.frames import ShardedFrames
+    from raytracer_tpu_torch.utils.hostload import load_scene_cli
+
+    scene, cam, opts = load_scene_cli(
+        spec["config"] if not spec["scene"] else "", spec["scene"],
+        spec["width"], spec["height"], spec["max_depth"])
+    t0 = time.perf_counter()
+    frames = ShardedFrames(scene, opts, device=device)
+    if dist.get_rank():
+        frames.serve()
+        return
+    img = frames.frame(cam)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    frames.stop()
+    n = dist.get_world_size()
+    print(f"{spec['scene'] or spec['config']}: {opts.width}x{opts.height} "
+          f"depth={opts.max_depth} on {n} ranks ({device.type}, a block of "
+          f"rows each) in {dt:.2f}s (tracer and kernel builds included)",
+          flush=True)
+    _save(spec["out"], img.cpu().numpy())
+
+
 def cmd_render(args):
     from raytracer_tpu_torch.utils.hostload import (build_tracer, cli_device,
                                                     load_scene_cli)
@@ -118,6 +200,10 @@ def cmd_render(args):
         raise SystemExit("--fault-countdown and --fault-rows drill the band "
                          "workers of --resilient")
     kind = "grid" if args.grid else args.tracer
+    if args.cards < 1:
+        raise SystemExit(f"--cards must be ≥ 1, got {args.cards}")
+    if args.cards > 1:
+        return _render_cards(args, kind)
     if args.resilient:
         return _render_resilient(args, kind)
     device = cli_device(args.device)
@@ -535,6 +621,13 @@ def main(argv=None):
     pr.add_argument("--fault-rows", default=None, type=_row_span,
                     help="resilient drill: band workers that meet image "
                          "rows A-B exit 42")
+    pr.add_argument("--cards", type=int, default=1,
+                    help="split the frame over N cards of this host, one "
+                         "process each (cuda:0 … cuda:N-1; N gloo ranks "
+                         "with --device cpu): a block of rows a card, the "
+                         "mesh searched by the grid on every card, the "
+                         "image gathered and written by rank 0 "
+                         "(parallel/frames.py)")
     pr.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     pr.set_defaults(fn=cmd_render)

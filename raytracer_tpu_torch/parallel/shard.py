@@ -25,6 +25,7 @@ from raytracer_tpu_torch.parallel import tracer as tr
 from raytracer_tpu_torch.parallel.mesh import RtMesh
 from raytracer_tpu_torch.renderer import (_same_device, needs_grad,
                                           render_rays, use_compact)
+from raytracer_tpu_torch.utils.profiling import span
 
 
 def rank_lanes(n_pix: int, n_tiles: int) -> int:
@@ -137,8 +138,9 @@ class _GatherTiles(torch.autograd.Function):
         n = dist.get_world_size(group)
         ctx.rows = (index * x.shape[0], (index + 1) * x.shape[0])
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.detach().contiguous(),
-                                    group=group)
+        with span("rt.gather"):
+            dist.all_gather_into_tensor(out, x.detach().contiguous(),
+                                        group=group)
         return out
 
     @staticmethod
@@ -210,36 +212,40 @@ def render_sharded(scene: Scene, camera: Camera, opts: RenderOptions,
     if tracer is not None and not _same_device(tracer.device, device):
         raise ValueError(f"tracer lives on {tracer.device}, render asked for "
                          f"{device}")
-    scene = scene.to(device)
-    camera = camera.to(device)
-    compact = use_compact(scene, opts)
-    n_pix = opts.height * opts.width
-    per_dev, inner = shard_layout(n_pix, mesh.shape["tiles"], opts.tile_rays)
-    grad = needs_grad(scene, camera)
-    if grad:
-        scene, camera = _sum_grads_over(mesh.tiles_group, scene, camera)
-    if tracer is None:
-        tracer = rank_tracer(scene, mesh, ring, accel, device=device)
-    lo = mesh.tile * per_dev
-    traced = torch.zeros((), dtype=torch.float32, device=device)
-    dropped = torch.zeros((), dtype=torch.float32, device=device)
-    rads = []
+    with span("rt.band"):   # this rank's block, up to the gather
+        scene = scene.to(device)
+        camera = camera.to(device)
+        compact = use_compact(scene, opts)
+        n_pix = opts.height * opts.width
+        per_dev, inner = shard_layout(n_pix, mesh.shape["tiles"],
+                                      opts.tile_rays)
+        grad = needs_grad(scene, camera)
+        if grad:
+            scene, camera = _sum_grads_over(mesh.tiles_group, scene, camera)
+        if tracer is None:
+            tracer = rank_tracer(scene, mesh, ring, accel, device=device)
+        lo = mesh.tile * per_dev
+        traced = torch.zeros((), dtype=torch.float32, device=device)
+        dropped = torch.zeros((), dtype=torch.float32, device=device)
+        rads = []
+        with torch.set_grad_enabled(grad):
+            dirs = primary_dirs(camera, opts, per_dev * mesh.shape["tiles"])
+            dirs = dirs[lo:lo + per_dev]
+            orig = camera.pos[None, :].expand(inner, 3)
+            for s in range(0, per_dev, inner):
+                rad, inc, *drop = render_rays(scene, orig, dirs[s:s + inner],
+                                              opts, count_rays, tracer=tracer)
+                rads.append(rad)
+                traced = traced + inc
+                if compact:
+                    dropped = dropped + drop[0]
+            block = torch.cat(rads)
     with torch.set_grad_enabled(grad):
-        dirs = primary_dirs(camera, opts, per_dev * mesh.shape["tiles"])
-        dirs = dirs[lo:lo + per_dev]
-        orig = camera.pos[None, :].expand(inner, 3)
-        for s in range(0, per_dev, inner):
-            rad, inc, *drop = render_rays(scene, orig, dirs[s:s + inner],
-                                          opts, count_rays, tracer=tracer)
-            rads.append(rad)
-            traced = traced + inc
-            if compact:
-                dropped = dropped + drop[0]
-        full = _GatherTiles.apply(torch.cat(rads), mesh.tiles_group,
-                                  mesh.tile)
+        full = _GatherTiles.apply(block, mesh.tiles_group, mesh.tile)
     img = clamp01(full[:n_pix]).reshape(opts.height, opts.width, 3)
     counts = torch.stack([traced, dropped])
-    dist.all_reduce(counts, group=mesh.tiles_group)
+    with span("rt.reduce"):
+        dist.all_reduce(counts, group=mesh.tiles_group)
     if compact:
         return img, counts[0], counts[1]
     return img, counts[0]

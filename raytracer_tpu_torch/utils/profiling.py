@@ -19,8 +19,10 @@ adds a bounce's live and dispatched search lanes to device-side counts
 (`counters()`); otherwise it does nothing. The names the renderer uses:
 `rt.frame`, `rt.bounce.<d>`, `rt.search`, `rt.shadow`, `rt.surface`,
 `rt.shade`, `rt.spawn`, `rt.count` (the lane sums), `rt.compact`,
-`rt.value_and_grad`, `rt.record`, `rt.replay`, `rt.backward`; lane kinds
-`nearest.b<d>` and `shadow.b<d>`. A trace tells units (frames, steps)
+`rt.value_and_grad`, `rt.record`, `rt.replay`, `rt.backward`, and across
+cards `rt.view` (a frame's view from rank 0), `rt.band` (a rank's own
+block), `rt.gather` (the image's all-gather), `rt.reduce` (the counts'
+all-reduce); lane kinds `nearest.b<d>` and `shadow.b<d>`. A trace tells units (frames, steps)
 apart by their order.
 """
 
