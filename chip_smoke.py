@@ -5,13 +5,18 @@
 Builds the CUDA kernels from raytracer_tpu_torch/csrc (one nvcc per source,
 in parallel) and prints their ptxas register/spill report. Then, per kernel:
 
-- grid walk (K5): kernel vs plain version on config4's rays at 1920×1080
-  (bit-equality reported), each walk set's time with its walking lanes,
-  cell visits, candidates and the lane efficiency of its candidate loops,
-  the config4 and config7 goldens on the card, and the main path
-  (load_scene_cli → build_tracer("auto") → render_banded) on config4 at
-  1920×1080, depth 4, checking that the walk kernel carried it, with the
-  frame's walk launches read from the profiler;
+- grid walk (K5): its fused entry (`grid_search_cuda`, one launch a
+  GridTracer search) over every search of the main path's config4
+  1920×1080 d4 frame, each bit for bit against the composition it replaces
+  (dense sphere/plane search, walk_init, K5 from that state, the merge)
+  and against the composition with the plain walk (bit-equality
+  reported), each search's walking lanes, cell visits, candidates and the
+  lane efficiency of its candidate loops, the searches' time against the
+  two compositions' and the bound; the config4 and config7 goldens on the
+  card, and the main path (load_scene_cli → build_tracer("auto") →
+  render_banded) on config4 at 1920×1080, depth 4, checking that the fused
+  entry carried every search, with the frame's K5 time read from the
+  profiler. Alone: `kernel_alone()`;
 - fused Whitted forward (K1), in its three modes (image: the live nodes
   only; live plan; full plan): the full plan vs the plain version (image
   and plan planes) on config1 256², config2 1920×1080 d2, config3 1024² d4
@@ -194,14 +199,20 @@ K2_OPS = {"pixel": 55, "node": (11, 34), "sphere": (40, 131),
           "plane": (33, 87), "tri": (46, 113), "light": (60, 156),
           "diffuse": (12, 33), "fresnel": (33, 60), "reflect": (33, 61),
           "refract": (50, 92)}
-# grid walk: Möller–Trumbore per tested candidate; DDA step per cell visit
-K5_OPS = {"candidate": 46, "visit": 3}
-# walk bytes per lane that walks: orig, dir, cell, tmax, step, tdelta (12
-# each), active (1), best_t/best_i in (8), t/idx out (8); occlusion adds
-# max_t (4). A lane that does not walk reads active, best_t and best_i and
-# writes t and idx (17). The table counts its listed triangles once per
-# launch, 40 bytes each (v0|e1|e2|id), whatever the layout.
-K5_RAY_BYTES, K5_OCCL_BYTES, K5_IDLE_BYTES, K5_SLOT_BYTES = 89, 4, 17, 40
+# the grid walk K5's fused search, counted from csrc/grid_walk.cu (fp32
+# operations as K1_OPS counts them): per lane, the dense test of a sphere
+# (35) and of a plane (15); per active lane, walk_init's slab entry and
+# first cell (80) and a Möller–Trumbore test per overflow triangle; per
+# tested candidate Möller–Trumbore (46), per cell visit a DDA step (3)
+K5_OPS = {"sphere": 35, "plane": 15, "init": 80, "candidate": 46, "visit": 3}
+# its bytes: per lane orig + dir in (24), a mask (1), a shadow search's
+# max_t in and bool out (5) or a nearest search's kind, idx and t out (12);
+# per launch each listed triangle once, 40 bytes (v0|e1|e2|id) whatever the
+# layout, as each overflow triangle, the sphere (16) and plane (24) tables
+# and the grid's box (36): every lane reads the same few bytes, which come
+# from memory once
+K5_LANE_BYTES, K5_MASK_BYTES, K5_OCCL_BYTES, K5_NEAREST_BYTES = 24, 1, 5, 12
+K5_SLOT_BYTES, K5_SPHERE_BYTES, K5_PLANE_BYTES, K5_BOX_BYTES = 40, 16, 24, 36
 # brute-force searches, per ray–triangle test: K3 is the walk's
 # Möller–Trumbore (csrc/tri_trace.cu). K4 counts what the function needs,
 # not the kernel's 76 + 6: build_tri_weights leaves 3 of the 10 weight rows
@@ -487,92 +498,189 @@ def lane_efficiency(cands):
     return float(cands.sum()), 32.0 * float(most.sum())
 
 
+def k5_reset():
+    """Set K5's launch counts (both entries, and the fused one alone) to 0."""
+    from raytracer_tpu_torch.ops import walk as W
+
+    W.launches = W.search_launches = 0
+
+
+def k5_searches(path: str) -> int:
+    """K5's launches since `k5_reset()`, each through the fused entry: a
+    main path's searches never walk from a state."""
+    from raytracer_tpu_torch.ops import walk as W
+
+    assert W.launches == W.search_launches, (path, W.launches,
+                                             W.search_launches)
+    return W.search_launches
+
+
+def frame_searches(scene, cam, opts, tracer, device):
+    """The main path's config4 frame (`render_banded`) with a copy of every
+    search it makes → [(orig, dirs, t_min, max_t or None, active or None)],
+    in call order: per tile and bounce the nearest, then each light's
+    shadow search."""
+    import torch
+
+    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.renderer import render_banded
+
+    calls, real = [], W.grid_search_cuda
+
+    def keep(base, grid, table, orig, direc, t_min, max_t=None, active=None):
+        calls.append(tuple(x.clone() if torch.is_tensor(x) else x
+                           for x in (orig, direc, t_min, max_t, active)))
+        return real(base, grid, table, orig, direc, t_min, max_t, active)
+
+    W.grid_search_cuda = keep
+    try:
+        render_banded(scene, cam, opts, device=device, tracer=tracer)
+    finally:
+        W.grid_search_cuda = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def composed_search(tracer, o, d, t_min, mx, act, walk):
+    """What one GridTracer search computes as separate ops on the card: the
+    dense sphere and plane search, then `walk` ("state": walk_init and K5's
+    from-state entry; "plain": the plain walk) and the merge → Hit or
+    bool."""
+    from raytracer_tpu_torch.accel.grid import walk_init
+    from raytracer_tpu_torch.ops import trace as TR
+    from raytracer_tpu_torch.ops import walk as W
+
+    sp, pl, g, table = (tracer._base.spheres, tracer._base.planes,
+                        tracer._grid, tracer._table)
+    if walk == "state":
+        st = walk_init(g, o, d, t_min, act)
+        tb, ib = W.grid_walk_cuda(g, table, o, d, st, t_min, mx)
+    else:
+        tb, ib = W.grid_walk_reference(g, table, o, d, t_min, mx, act)
+    if mx is None:
+        base = TR.dense_nearest(o, d, t_min, sp.center, sp.radius, pl.point,
+                                pl.normal)
+        return TR.merge_triangles(base, tb, ib)
+    occ = TR.dense_occluded(o, d, mx, t_min, sp.center, sp.radius, pl.point,
+                            pl.normal)
+    return occ | (tb < mx)
+
+
+def search_equal(got, want) -> bool:
+    """Hits (kind, idx, t's bits) or occlusion bits equal on every lane."""
+    import torch
+
+    if torch.is_tensor(want):
+        return torch.equal(got, want)
+    return (torch.equal(got.kind, want.kind)
+            and torch.equal(got.idx, want.idx)
+            and torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)))
+
+
 def kernel_phase(scene, cam, opts, tracer, device):
-    """Kernel vs plain version on the config4 ray sets → (max |Δt|, ms,
-    plain ms, bound ms, bound by). The times walk the four sets the render
-    walks once, in launches of the render's tile size, from precomputed
-    walk_init states; each set is also timed alone, with the work it needs
-    (walking lanes, cell visits, candidates) and the lane efficiency of its
-    candidate loops in the warps that walk."""
+    """K5's fused entry (`grid_search_cuda`, what every GridTracer search
+    launches on the card) over the searches of the main path's config4
+    frame → (max |Δt| against the plain composition, ms, plain ms, bound
+    ms, bound by). Each search is held bit for bit to the composition with
+    K5's from-state entry (dense search, walk_init, the walk, the merge),
+    and to the composition with the plain walk (bit-equality reported,
+    t at T_RTOL and ids asserted); each search's work is reported (lanes
+    that walk, cell visits, candidates, the lane efficiency of the
+    candidate loops). Times: the fused searches, the from-state
+    composition they replace and the plain composition, over the frame's
+    searches (CUDA events), and the fused searches timed whole
+    (`call_times`)."""
     import torch
 
     from raytracer_tpu_torch.accel.grid import walk_init
+    from raytracer_tpu_torch.ops import trace as TR
     from raytracer_tpu_torch.ops import walk as W
 
-    grid, table = tracer._grid, tracer._table
-    sets = walk_ray_sets(scene, cam, opts, tracer, device)
-    sets.append(("primary-occl6", sets[0][1], sets[0][2],
-                 torch.full_like(sets[0][1][:, 0], 6.0), None))
+    grid, table, base = tracer._grid, tracer._table, tracer._base
+    calls = frame_searches(scene, cam, opts, tracer, device)
+    assert calls and len(calls) % 3 == 0, len(calls)
+    fused = [lambda c=c: W.grid_search_cuda(base, grid, table, c[0], c[1],
+                                            c[2], c[3], c[4]) for c in calls]
     err = 0.0
-    for name, o, d, mx, act in sets:
-        o, d = o.contiguous(), d.contiguous()
-        state = walk_init(grid, o, d, opts.t_min, act)
-        got = W.grid_walk_cuda(grid, table, o, d, state, opts.t_min, mx)
-        ref = W.grid_walk_reference(grid, table, o, d, opts.t_min, mx, act)
+    for k, (c, run) in enumerate(zip(calls, fused)):
+        o, d, t_min, mx, act = c
+        name = (f"search {k} ({'shadow' if mx is not None else 'nearest'}, "
+                f"{o.shape[0]} lanes, "
+                f"{o.shape[0] if act is None else int(act.sum())} active)")
+        got = run()
+        want = composed_search(tracer, o, d, t_min, mx, act, "state")
+        plain = composed_search(tracer, o, d, t_min, mx, act, "plain")
         torch.cuda.synchronize()
-        err = max(err, compare_walks(name, ref, got, mx))
-        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        print(f"  bit-equal to the plain walk: {same}", flush=True)
-        if act is not None:
-            assert bool(torch.isinf(got[0][~act]).all()), f"{name}: masked lane hit"
+        assert search_equal(got, want), f"{name}: fused != composition"
+        same = search_equal(got, plain)
+        if mx is None:
+            compare_hits(name, (plain.t, plain.idx), (got.t, got.idx))
+            hit = torch.isfinite(got.t)
+            if bool(hit.any()):
+                err = max(err, float((got.t[hit] - plain.t[hit]).abs().max()))
+        else:
+            diffs = int((got != plain).sum())
+            print(f"{name}: {int(got.sum())} occluded, occlusion diffs "
+                  f"{diffs}", flush=True)
+            assert diffs == 0, name
+        print(f"  bit-equal to the from-state composition: True, to the "
+              f"plain composition: {same}", flush=True)
 
-    tile = opts.tile_rays
+    ms = cuda_ms(lambda: [f() for f in fused], 5)
+    state_ms = cuda_ms(lambda: [composed_search(tracer, *c, "state")
+                                for c in calls], 5)
+    plain_ms = cuda_ms(lambda: [composed_search(tracer, *c, "plain")
+                                for c in calls], 1)
+    whole = call_times(fused, "grid_walk_kernel")
+    print(f"the fused searches timed whole: {fmt_call(whole)}", flush=True)
+    if whole["device_ops"] is not None:
+        assert whole["device_ops"] == len(calls), whole  # one launch a search
+
+    # the bound: the work these searches need, the walk's counted with the
+    # plain walk on the lanes the fused entry walks (active, in the grid,
+    # and, for a shadow search, not occluded by a sphere or plane)
+    sp, pl = base.spheres, base.planes
+    ns, np_ = sp.center.shape[0], pl.point.shape[0]
     listed = int((grid.cell_soa[..., 9] != grid.n_tris).sum())
-    by_set = {}
-    for name, o, d, mx, act in sets[:-1]:  # the four sets the render walks
-        by_set[name] = []
-        for s in range(0, o.shape[0], tile):
-            po, pd = o[s:s + tile].contiguous(), d[s:s + tile].contiguous()
-            pm = None if mx is None else mx[s:s + tile].contiguous()
-            pa = None if act is None else act[s:s + tile]
-            by_set[name].append((po, pd, pm, walk_init(grid, po, pd,
-                                                       opts.t_min, pa)))
-    pieces = [p for ps in by_set.values() for p in ps]
-
-    def run(walk, ps):
-        for o, d, mx, st in ps:
-            walk(grid, table, o, d, st, opts.t_min, mx)
-
-    ms = cuda_ms(lambda: run(W.grid_walk_cuda, pieces), 5)
-    plain_ms = cuda_ms(lambda: run(W.grid_walk_plain, pieces), 1)
-    # the bound: the work these rays need, counted with the plain walk
-    cands = visits = nbytes = 0.0
-    for name, ps in by_set.items():
-        set_ms = cuda_ms(lambda: run(W.grid_walk_cuda, ps), 5)
-        n = walking = v = c = busy = slots = 0
-        for o, d, mx, st in ps:
-            stats = {}
-            W.grid_walk_plain(grid, table, o, d, st, opts.t_min, mx,
-                              stats=stats)
-            lanes = torch.nonzero(st[6]).squeeze(1)
-            per_lane = stats.get("lane_candidates", torch.zeros(
-                o.shape[0], dtype=torch.int64, device=o.device))
-            b, sl = lane_efficiency(per_lane)
-            busy += b
-            slots += sl
-            n += o.shape[0]
-            walking += lanes.shape[0]
-            v += float(stats.get("visits", 0))
-            c += float(stats.get("candidates", 0))
-            nbytes += listed * K5_SLOT_BYTES + lanes.shape[0] * (
-                K5_RAY_BYTES + (K5_OCCL_BYTES if mx is not None else 0)) + (
-                o.shape[0] - lanes.shape[0]) * K5_IDLE_BYTES
-        cands += c
-        visits += v
-        print(f"walk set {name}: kernel {set_ms:.4f} ms over {len(ps)} "
-              f"launches; {walking} of {n} lanes walk, {v:.6g} cell visits, "
-              f"{c:.6g} candidates; lane efficiency of the candidate loops "
-              f"in the warps that walk (32 lanes in pixel order) "
-              f"{busy / slots if slots else 0.0:.1%}", flush=True)
-    ops = K5_OPS["candidate"] * cands + K5_OPS["visit"] * visits
+    per_launch = (listed * K5_SLOT_BYTES + ns * K5_SPHERE_BYTES
+                  + np_ * K5_PLANE_BYTES + K5_BOX_BYTES
+                  + grid.overflow.shape[0] * K5_SLOT_BYTES)
+    ops = nbytes = 0.0
+    for k, (o, d, t_min, mx, act) in enumerate(calls):
+        n = o.shape[0]
+        walk_act = torch.ones(n, dtype=torch.bool, device=device) \
+            if act is None else act
+        if mx is not None:
+            walk_act = walk_act & ~TR.dense_occluded(
+                o, d, mx, t_min, sp.center, sp.radius, pl.point, pl.normal)
+        st = walk_init(grid, o, d, t_min, walk_act)
+        stats = {}
+        W.grid_walk_plain(grid, table, o, d, st, t_min, mx, stats=stats)
+        n_act, walking = int(walk_act.sum()), int(st[6].sum())
+        per_lane = stats.get("lane_candidates", torch.zeros(
+            n, dtype=torch.int64, device=device))
+        busy, slots = lane_efficiency(per_lane)
+        v, c = float(stats.get("visits", 0)), float(stats.get("candidates", 0))
+        ops += (n * (ns * K5_OPS["sphere"] + np_ * K5_OPS["plane"])
+                + n_act * (K5_OPS["init"]
+                           + grid.overflow.shape[0] * K5_OPS["candidate"])
+                + K5_OPS["candidate"] * c + K5_OPS["visit"] * v)
+        nbytes += per_launch + n * (
+            K5_LANE_BYTES + (act is not None) * K5_MASK_BYTES
+            + (K5_OCCL_BYTES if mx is not None else K5_NEAREST_BYTES))
+        print(f"search {k}: {walking} of {n} lanes walk ({n_act} active), "
+              f"{v:.6g} cell visits, {c:.6g} candidates; lane efficiency of "
+              f"the candidate loops in the warps that walk (32 lanes in pixel "
+              f"order) {busy / slots if slots else 0.0:.1%}", flush=True)
     b_ms, b_by = bound_ms(ops, nbytes)
-    print(f"walk over {sum(p[0].shape[0] for p in pieces)} rays in "
-          f"{len(pieces)} launches of ≤{tile}: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; {visits:.6g} cell visits, {cands:.6g} "
-          f"candidates tested, {ops:.6g} ops, {nbytes:.6g} bytes "
-          f"({listed} listed triangles, {listed * K5_SLOT_BYTES} B of table "
-          f"per launch) → bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of "
-          "bound", flush=True)
+    print(f"fused searches of the config4 {opts.width}x{opts.height} "
+          f"d{opts.max_depth} frame: {len(calls)} launches over "
+          f"{sum(c[0].shape[0] for c in calls)} lanes: kernel {ms:.4f} ms; "
+          f"the from-state composition they replace {state_ms:.4f} ms, the "
+          f"plain composition {plain_ms:.3f} ms; {ops:.6g} ops, {nbytes:.6g} "
+          f"bytes ({listed} listed triangles, {per_launch} B of tables per "
+          f"launch) → bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound",
+          flush=True)
     return err, ms, plain_ms, b_ms, b_by
 
 
@@ -1495,7 +1603,6 @@ def waveplan_phase(scene, cam, opts, tracer, frame, device):
     import torch
 
     from raytracer_tpu_torch.ops import dgather as D
-    from raytracer_tpu_torch.ops import walk as W
     from raytracer_tpu_torch.ops.replay import replay_render
     from raytracer_tpu_torch.renderer import value_and_grad_banded
 
@@ -1510,13 +1617,13 @@ def waveplan_phase(scene, cam, opts, tracer, frame, device):
     waveplan_vg(p0, dscene, cam, opts, target, plan, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    W.launches = 0
+    k5_reset()
     t0 = time.perf_counter()
     img, traced, plan = waveplan_record(dscene, cam, opts, tracer, device)
     loss, grads = waveplan_vg(p0, dscene, cam, opts, target, plan, device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k5 = W.launches
+    k5 = k5_searches("config4 1080p d4 fwd+bwd step")
     peak = torch.cuda.max_memory_allocated() / 2**20
     plan_bytes = sum(x.numel() * x.element_size() for planes in plan
                      for x in planes)
@@ -1866,7 +1973,6 @@ def compact_phase(device):
     from raytracer_tpu_torch import cli
     from raytracer_tpu_torch.io.image import load_ppm, to_u8
     from raytracer_tpu_torch.ops import fused as F
-    from raytracer_tpu_torch.ops import walk as W
     from raytracer_tpu_torch.renderer import render_banded
     from raytracer_tpu_torch.utils.hostload import build_tracer, load_scene_cli
 
@@ -1879,13 +1985,13 @@ def compact_phase(device):
         cli.main(argv)  # warm-up
     torch.cuda.synchronize()
     buf = io.StringIO()
-    W.launches = 0
+    k5_reset()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k5 = W.launches
+    k5 = k5_searches("cli render --config config3 --compact")
     text = buf.getvalue()
     print(text, end="")
     rays = float(re.search(r"— (\S+) rays", text).group(1))
@@ -1927,11 +2033,11 @@ def compact_phase(device):
     for tile in (REF_TILE, one):
         for cap in (COMPACT_CAP, None):
             o = dataclasses.replace(opts, compact_cap=cap, tile_rays=tile)
-            W.launches = 0
+            k5_reset()
             med, runs, peak = frame_times(lambda: render_banded(
                 scene, cam, o, device=device, tracer=tracer,
                 count_rays=True))
-            per = W.launches // (len(runs) + 1)
+            per = k5_searches("config3 compacted frames") // (len(runs) + 1)
             res = render_banded(scene, cam, o, device=device, tracer=tracer,
                                 count_rays=True)
             same = torch.equal(res[0], img)
@@ -2338,10 +2444,10 @@ def exact_grid_phase(scene, cam, opts, box, box_img, device):
         print(f"K5 over config4's four 1080p walk sets, "
               f"{'exact' if exact else 'box'} grid: {ms:.4f} ms", flush=True)
 
-    W.launches = 0
+    k5_reset()
     img, _ = render_banded(scene, cam, opts, device=device, tracer=exact_tr)
     torch.cuda.synchronize()
-    k5 = W.launches
+    k5 = k5_searches("config4 1080p d4 frame on the exact grid")
     diff = (img - box_img).abs().amax(dim=-1).cpu().numpy()
     bad = float((diff > IMG_TOL).mean())
     msg = (f"config4 1920x1080 d4 frame on the exact grid: {k5} walk "
@@ -2769,7 +2875,7 @@ MD_LOSS_RTOL, MD_TABLE_TOL = 1e-5, 1e-4
 OV_LOSS_RTOL, OV_GRAD_RTOL, OV_GRAD_ATOL, OV_SINGLE_RTOL = 1e-6, 1e-4, 1e-7, \
     1e-5
 # kernels of the multi-device path → their launch counters
-MD_KERNELS = {"grid_walk": ("raytracer_tpu_torch.ops.walk", "launches"),
+MD_KERNELS = {"grid_walk": ("raytracer_tpu_torch.ops.walk", "search_launches"),
               "bvh_walk": ("raytracer_tpu_torch.ops.bvh_walk", "launches"),
               "fused_whitted_live_plan": ("raytracer_tpu_torch.ops.fused",
                                           "live_plan_launches"),
@@ -3151,14 +3257,13 @@ def cli_frame(argv):
     """`cli.main(argv)` in-process (a render) → (image, rays, wall s of its
     `render_banded`, stdout, K5 launches)."""
     from raytracer_tpu_torch import cli, renderer
-    from raytracer_tpu_torch.ops import walk as W
 
     buf = io.StringIO()
-    W.launches = 0
+    k5_reset()
     with capturing(renderer, "render_banded") as got, \
             contextlib.redirect_stdout(buf):
         cli.main(argv)
-    launches = W.launches
+    launches = k5_searches(" ".join(argv))
     assert len(got) == 1, len(got)
     _, (img, rays), secs = got[0]
     return img, rays, secs, buf.getvalue(), launches
@@ -3497,14 +3602,13 @@ def main_frame(scene, cam, opts, tracer, device):
     launches per frame)."""
     import torch
 
-    from raytracer_tpu_torch.ops import walk as W
     from raytracer_tpu_torch.renderer import render_banded
 
     render_banded(scene, cam, opts, device=device, tracer=tracer,
                   count_rays=True)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    W.launches = 0
+    k5_reset()
     frame_s = []
     for _ in range(FRAMES):  # the host's share varies: report the median
         t0 = time.perf_counter()
@@ -3512,8 +3616,9 @@ def main_frame(scene, cam, opts, tracer, device):
                                     tracer=tracer, count_rays=True)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
-    assert W.launches % FRAMES == 0, W.launches
-    launches = W.launches // FRAMES
+    launches = k5_searches("cli render --config config4")
+    assert launches % FRAMES == 0, launches
+    launches //= FRAMES
     dt = sorted(frame_s)[FRAMES // 2]
     rays = float(traced)
     print(f"config4 {opts.width}x{opts.height} depth {opts.max_depth}: "
@@ -3547,6 +3652,13 @@ def alone_setup():
     tracer = build_tracer(scene, "auto", device)
     img, traced, dt, _ = main_frame(scene, cam, opts, tracer, device)
     return scene, cam, opts, tracer, img, traced, dt, device
+
+
+def kernel_alone():
+    """K5's fused search phase on its own (`alone_setup` first)."""
+    scene, cam, opts, tracer, _, _, _, device = alone_setup()
+    print(json.dumps(kernel_phase(scene, cam, opts, tracer, device)))
+    print(card_line(), flush=True)
 
 
 def tooling_alone():
@@ -3614,7 +3726,8 @@ def main() -> int:
     _phase("raygen on the card")
     raygen_check(device)
 
-    _phase("kernel vs plain version, config4 rays at 1920x1080")
+    _phase("K5's fused search vs the compositions it replaces, the searches "
+           "of the config4 1920x1080 d4 frame")
     scene, cam, opts = load_scene_cli("config4")
     t0 = time.perf_counter()
     tracer = build_tracer(scene, "auto", device)

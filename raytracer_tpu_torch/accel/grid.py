@@ -228,10 +228,17 @@ class GridTracer:
                           device=device, exact=exact)
         return GridTracer(scene, grid, device)
 
+    # On the card each search is one launch of the walk kernel's fused
+    # entry (`ops/walk.grid_search_cuda`); elsewhere the composition it is
+    # held to bit for bit: the dense search over spheres and planes, the
+    # walk, and the merge.
     @torch.no_grad()
     def nearest(self, orig, direc, t_min, tri_chunk, active=None):
-        from raytracer_tpu_torch.ops.walk import grid_walk
+        from raytracer_tpu_torch.ops.walk import grid_search_cuda, grid_walk
 
+        if orig.device.type == "cuda":
+            return grid_search_cuda(self._base, self._grid, self._table, orig,
+                                    direc, t_min, active=active)
         # spheres + planes via the dense search on a mesh-less scene
         base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
         tb, ib = grid_walk(self._grid, self._table, orig, direc, t_min,
@@ -240,8 +247,11 @@ class GridTracer:
 
     @torch.no_grad()
     def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
-        from raytracer_tpu_torch.ops.walk import grid_walk
+        from raytracer_tpu_torch.ops.walk import grid_search_cuda, grid_walk
 
+        if orig.device.type == "cuda":
+            return grid_search_cuda(self._base, self._grid, self._table, orig,
+                                    direc, t_min, max_t, active)
         occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
                                  tri_chunk)
         tb, _ = grid_walk(self._grid, self._table, orig, direc, t_min,

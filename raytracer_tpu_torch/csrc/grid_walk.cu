@@ -32,6 +32,40 @@
 // winner, and every t comes from the same expressions as
 // geometry.triangle_tuv: the kernel equals the plain walk bit for bit.
 //
+// Two entries share the one kernel template (the entry is its compile-time
+// argument) and the one walk loop, walk_lane:
+//   - rt_grid_walk, from a state: the walk_init state of accel/grid.py,
+//     written by torch ops as six buffers, read back here;
+//   - rt_grid_search, the fused search: one launch does all of a
+//     GridTracer.nearest or GridTracer.occluded call. Per lane, in
+//     registers:
+//       1. the dense sphere and plane tests over the tracer's tables (read
+//          through pointers at each call), on every lane whatever `active`
+//          says: ops/trace.dense_nearest / dense_occluded;
+//       2. on active lanes, the overflow seed, then the slab entry, the
+//          first cell, tmax, step and tdelta of accel/grid.walk_init;
+//       3. the walk, on lanes that are active and inside the grid;
+//       4. the merge: nearest writes the Hit (kind, idx i32; t f32),
+//          occlusion the bool occ | (t_walk < max_t).
+//     A lane the dense tests already find occluded skips 2-3: its bit is
+//     set whatever the walk finds.
+//   Its rules, each that of the torch composition it replaces, bit for bit:
+//     ties go to the first index of a group (torch.min), then spheres <
+//     planes < triangles (strict < at each merge), triangles by (t, id);
+//     geometry.sphere_t keeps its radius > 0 term, and its
+//     torch.minimum / maximum propagate NaN (nan_min / nan_max here; fminf
+//     would drop one), as do walk_init's amax / amin and clamp; a hit
+//     distance is never NaN (a failed comparison misses), so the minimum
+//     over a group needs no NaN rule; the reciprocal is 1e12 where
+//     |d| <= 1e-12, and nan_to_num zeroes a NaN or infinite cell
+//     coordinate. The composition it equals is torch's on the card, whose
+//     sqrt and division round correctly as sqrtf and / do here; the CPU's
+//     sqrt (MKL) can be an ulp off.
+//     The fused launch costs the card little beside the walk it holds: the
+//     dense tests read 24-29 bytes a lane and write 1-12 (config4 1080p d4
+//     on the H100: 1.46 device ms a frame against 1.36 for the walk from a
+//     state, with ~8.9 ms of torch ops and ~900 launches a frame gone).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -Xcompiler -fPIC -c, then one -shared link of all
 //        sources (kernels/build.py). No
@@ -49,22 +83,70 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kRows = 3;  // candidate rows whose loads go out together
 
-// Walk lane r from its entry state → (best_t, best_idx).
+constexpr int kKindSphere = 1;  // core/types.py's KIND_* codes
+constexpr int kKindPlane = 2;
+constexpr int kKindTriangle = 3;
+
+// One lane's ray and DDA entry state.
+struct Lane {
+  float ox, oy, oz, dx, dy, dz;
+  int cx, cy, cz;
+  float tmx, tmy, tmz;
+  int sx, sy, sz;
+  float tdx, tdy, tdz;
+};
+
+// Every input and output of either entry; an entry leaves the other's null.
+struct WalkArgs {
+  const float* orig;    // [N,3]
+  const float* dir;     // [N,3]
+  const uint8_t* act;   // [N] bool; null in the fused entry = all active
+  const float* max_t;   // [N] (occlusion only)
+  const int2* cells;    // [ncells] offset, count
+  const float4* slots;  // [n_slots, 3]
+  int n, nx, ny, nz, max_iters, occlusion;
+  float t_min;
+  // from a state (rt_grid_walk)
+  const int* cell0;       // [N,3]
+  const float* tmax0;     // [N,3]
+  const int* step0;       // [N,3]
+  const float* tdelta0;   // [N,3]
+  const float* best_t0;   // [N]
+  const int* best_i0;     // [N]
+  // fused (rt_grid_search)
+  const float* sph_c;     // [ns,3]
+  const float* sph_r;     // [ns]
+  const float* pl_p;      // [np,3]
+  const float* pl_n;      // [np,3]
+  int ns, np;
+  const float* bmin;      // [3] grid box min
+  const float* cell_size; // [3]
+  const float* inv_cell;  // [3]
+  const float* ov_v0;     // [n_ov,3] overflow triangles
+  const float* ov_e1;     // [n_ov,3]
+  const float* ov_e2;     // [n_ov,3]
+  const int* ov_ids;      // [n_ov]
+  int n_ov, n_tris;
+  // outputs: t and idx (both entries; idx is the triangle id of a walk
+  // from a state and the Hit's idx of a fused nearest), the fused
+  // nearest's kind, the fused occlusion's bool
+  float* t_out;
+  int* i_out;
+  int* kind_out;
+  uint8_t* occ_out;
+};
+
+// Walk lane `s` from its entry state → (best_t, best_idx).
 __device__ __forceinline__ void walk_lane(
-    int r, const float* __restrict__ orig, const float* __restrict__ dir,
-    const int* __restrict__ cell0, const float* __restrict__ tmax0,
-    const int* __restrict__ step0, const float* __restrict__ tdelta0,
-    const float* __restrict__ max_t, const int2* __restrict__ cells,
+    const Lane& s, float mt, const int2* __restrict__ cells,
     const float4* __restrict__ slots, int nx, int ny, int nz, float t_min,
     int max_iters, int occlusion, float& bt, int& bi) {
-  const float ox = orig[3 * r], oy = orig[3 * r + 1], oz = orig[3 * r + 2];
-  const float dx = dir[3 * r], dy = dir[3 * r + 1], dz = dir[3 * r + 2];
-  int cx = cell0[3 * r], cy = cell0[3 * r + 1], cz = cell0[3 * r + 2];
-  float tmx = tmax0[3 * r], tmy = tmax0[3 * r + 1], tmz = tmax0[3 * r + 2];
-  const int sx = step0[3 * r], sy = step0[3 * r + 1], sz = step0[3 * r + 2];
-  const float tdx = tdelta0[3 * r], tdy = tdelta0[3 * r + 1],
-              tdz = tdelta0[3 * r + 2];
-  const float mt = occlusion ? max_t[r] : 0.0f;
+  const float ox = s.ox, oy = s.oy, oz = s.oz;
+  const float dx = s.dx, dy = s.dy, dz = s.dz;
+  int cx = s.cx, cy = s.cy, cz = s.cz;
+  float tmx = s.tmx, tmy = s.tmy, tmz = s.tmz;
+  const int sx = s.sx, sy = s.sy, sz = s.sz;
+  const float tdx = s.tdx, tdy = s.tdy, tdz = s.tdz;
 
   int2 cc = __ldg(cells + (cx * ny + cy) * nz + cz);  // offset, count
   for (int it = 0; it < max_iters; ++it) {
@@ -84,19 +166,19 @@ __device__ __forceinline__ void walk_lane(
         out ? make_int2(0, 0) : __ldg(cells + (ncx * ny + ncy) * nz + ncz);
 
     // the cell's rows, kRows at a time: all their loads go out together
-    const float4* s = slots + 3 * static_cast<size_t>(cc.x);
+    const float4* p = slots + 3 * static_cast<size_t>(cc.x);
     int k = 0;
-    for (; k + kRows <= cc.y; k += kRows, s += 3 * kRows) {
+    for (; k + kRows <= cc.y; k += kRows, p += 3 * kRows) {
       float4 row[3 * kRows];
 #pragma unroll
-      for (int q = 0; q < 3 * kRows; ++q) row[q] = __ldg(s + q);
+      for (int q = 0; q < 3 * kRows; ++q) row[q] = __ldg(p + q);
 #pragma unroll
       for (int j = 0; j < kRows; ++j)
         test_row(row[3 * j], row[3 * j + 1], row[3 * j + 2], ox, oy, oz, dx,
                  dy, dz, t_min, bt, bi);
     }
-    for (; k < cc.y; ++k, s += 3)
-      test_row(__ldg(s), __ldg(s + 1), __ldg(s + 2), ox, oy, oz, dx, dy, dz,
+    for (; k < cc.y; ++k, p += 3)
+      test_row(__ldg(p), __ldg(p + 1), __ldg(p + 2), ox, oy, oz, dx, dy, dz,
                t_min, bt, bi);
 
     const bool parked = occlusion ? (bt < mt || m > mt) : (bt <= m);
@@ -114,39 +196,292 @@ __device__ __forceinline__ void walk_lane(
   }
 }
 
+// torch.minimum / torch.maximum: NaN if either operand is NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? CUDART_NAN_F : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
+}
+
+// geometry.sphere_t in its op order (safe_sqrt, safe_div and the
+// radius > 0 term included) → t, +inf on a miss.
+__device__ __forceinline__ float dense_sphere_t(const Lane& l, float cx,
+                                                float cy, float cz, float r,
+                                                float t_min) {
+  const float Lx = l.ox - cx, Ly = l.oy - cy, Lz = l.oz - cz;
+  const float a = l.dx * l.dx + l.dy * l.dy + l.dz * l.dz;
+  const float b = 2.0f * (l.dx * Lx + l.dy * Ly + l.dz * Lz);
+  const float c0 = (Lx * Lx + Ly * Ly + Lz * Lz) - r * r;
+  const float disc = b * b - 4.0f * a * c0;
+  const bool has_root = disc >= 0.0f && r > 0.0f;
+  const float sq = has_root ? sqrtf(fmaxf(disc, 1e-12f)) : 0.0f;
+  const float q = -0.5f * (b + (b >= 0.0f ? sq : -sq));
+  const float t0 = fabsf(a) > 1e-12f ? q / a : 0.0f;
+  const float t1 = fabsf(q) > 1e-12f ? c0 / q : -CUDART_INF_F;
+  const float tlo = nan_min(t0, t1);
+  const float thi = nan_max(t0, t1);
+  const float t = tlo > t_min ? tlo : (thi > t_min ? thi : CUDART_INF_F);
+  return has_root ? t : CUDART_INF_F;
+}
+
+// geometry.plane_t in its op order → t, +inf on a miss.
+__device__ __forceinline__ float dense_plane_t(const Lane& l, const float* p,
+                                               const float* nv, float t_min) {
+  const float nx = __ldg(nv), ny = __ldg(nv + 1), nz = __ldg(nv + 2);
+  const float denom = nx * l.dx + ny * l.dy + nz * l.dz;
+  const bool valid = fabsf(denom) > kRowDetEps;
+  const float num = (__ldg(p) - l.ox) * nx + (__ldg(p + 1) - l.oy) * ny +
+                    (__ldg(p + 2) - l.oz) * nz;
+  const float t = valid ? num / denom : -CUDART_INF_F;
+  return (valid && t > t_min) ? t : CUDART_INF_F;
+}
+
+// walk_init's reciprocal of a direction component.
+__device__ __forceinline__ float recip(float d) {
+  return fabsf(d) > 1e-12f ? 1.0f / d : 1e12f;
+}
+
+// The rest of walk_init on one axis, once the entry distance is known:
+// the first cell, step, tdelta and tmax.
+__device__ __forceinline__ void axis_entry(float o, float d, float inv,
+                                           float bmin, float cs, float ic,
+                                           int res, float s, int& cell,
+                                           int& step, float& tdelta,
+                                           float& tmax) {
+  const float p = o + s * d;
+  float cf = (p - bmin) * ic;
+  if (!isfinite(cf)) cf = 0.0f;  // nan_to_num(nan=0, posinf=0, neginf=0)
+  float fl = floorf(cf);
+  fl = fl < 0.0f ? 0.0f : fl;
+  fl = fminf(fl, static_cast<float>(res - 1));
+  cell = static_cast<int>(fl);
+  step = d > 0.0f ? 1 : -1;
+  tdelta = fabsf(cs * inv);
+  const float nb = bmin + static_cast<float>(cell + (step > 0 ? 1 : 0)) * cs;
+  tmax = fabsf(d) > 1e-12f ? (nb - o) * inv : CUDART_INF_F;
+}
+
+// The fused search on lane r (rt_grid_search).
+__device__ __forceinline__ void search_lane(const WalkArgs& a, int r) {
+  Lane l;
+  l.ox = a.orig[3 * r];
+  l.oy = a.orig[3 * r + 1];
+  l.oz = a.orig[3 * r + 2];
+  l.dx = a.dir[3 * r];
+  l.dy = a.dir[3 * r + 1];
+  l.dz = a.dir[3 * r + 2];
+  const float mt = a.occlusion ? a.max_t[r] : 0.0f;
+
+  // 1. the dense tests, every lane
+  float t_best = CUDART_INF_F;
+  int kind = 0, idx = 0;
+  bool occ = false;
+  if (a.ns) {
+    float tb = CUDART_INF_F;
+    int ib = 0;
+    for (int j = 0; j < a.ns; ++j) {
+      const float* c = a.sph_c + 3 * j;
+      const float t = dense_sphere_t(l, __ldg(c), __ldg(c + 1), __ldg(c + 2),
+                                     __ldg(a.sph_r + j), a.t_min);
+      occ = occ || t < mt;
+      if (t < tb) {
+        tb = t;
+        ib = j;
+      }
+    }
+    if (tb < t_best) {
+      t_best = tb;
+      kind = kKindSphere;
+      idx = ib;
+    }
+  }
+  if (a.np) {
+    float tb = CUDART_INF_F;
+    int ib = 0;
+    for (int j = 0; j < a.np; ++j) {
+      const float t =
+          dense_plane_t(l, a.pl_p + 3 * j, a.pl_n + 3 * j, a.t_min);
+      occ = occ || t < mt;
+      if (t < tb) {
+        tb = t;
+        ib = j;
+      }
+    }
+    if (tb < t_best) {
+      t_best = tb;
+      kind = kKindPlane;
+      idx = ib;
+    }
+  }
+  if (a.occlusion && occ) {  // set whatever the walk would find
+    a.occ_out[r] = 1;
+    return;
+  }
+
+  // 2. walk_init on active lanes: the overflow seed (first index on ties),
+  // then the slab entry
+  float bt = CUDART_INF_F;
+  int bi = a.n_tris;
+  const bool active = a.act == nullptr || a.act[r];
+  if (active) {
+    int arg = 0;
+    for (int j = 0; j < a.n_ov; ++j) {
+      const float* v = a.ov_v0 + 3 * j;
+      const float* e = a.ov_e1 + 3 * j;
+      const float* f = a.ov_e2 + 3 * j;
+      const float t = tri_row_t(__ldg(v), __ldg(v + 1), __ldg(v + 2),
+                                __ldg(e), __ldg(e + 1), __ldg(e + 2),
+                                __ldg(f), __ldg(f + 1), __ldg(f + 2), l.ox,
+                                l.oy, l.oz, l.dx, l.dy, l.dz, a.t_min);
+      if (t < bt) {
+        bt = t;
+        arg = j;
+      }
+    }
+    if (bt != CUDART_INF_F) bi = __ldg(a.ov_ids + arg);
+
+    const float o[3] = {l.ox, l.oy, l.oz};
+    const float d[3] = {l.dx, l.dy, l.dz};
+    const int res[3] = {a.nx, a.ny, a.nz};
+    float inv[3], bmin[3], cs[3];
+    float tlo = 0.0f, thi = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      bmin[k] = __ldg(a.bmin + k);
+      cs[k] = __ldg(a.cell_size + k);
+      const float bmax = bmin[k] + cs[k] * static_cast<float>(res[k]);
+      inv[k] = recip(d[k]);
+      const float t0 = (bmin[k] - o[k]) * inv[k];
+      const float t1 = (bmax - o[k]) * inv[k];
+      const float lo = nan_min(t0, t1), hi = nan_max(t0, t1);
+      tlo = k == 0 ? lo : nan_max(tlo, lo);  // amax
+      thi = k == 0 ? hi : nan_min(thi, hi);  // amin
+    }
+    // torch.clamp(tlo, min=0) keeps a NaN, which then fails both tests
+    const float t_entry = tlo < 0.0f ? 0.0f : tlo;
+    if (thi >= t_entry && thi > 0.0f) {
+      const float s = t_entry + 1e-5f;
+      int cell[3], step[3];
+      float tdelta[3], tmax[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        axis_entry(o[k], d[k], inv[k], bmin[k], cs[k], __ldg(a.inv_cell + k),
+                   res[k], s, cell[k], step[k], tdelta[k], tmax[k]);
+      l.cx = cell[0];
+      l.cy = cell[1];
+      l.cz = cell[2];
+      l.tmx = tmax[0];
+      l.tmy = tmax[1];
+      l.tmz = tmax[2];
+      l.sx = step[0];
+      l.sy = step[1];
+      l.sz = step[2];
+      l.tdx = tdelta[0];
+      l.tdy = tdelta[1];
+      l.tdz = tdelta[2];
+      // 3. the walk
+      walk_lane(l, mt, a.cells, a.slots, a.nx, a.ny, a.nz, a.t_min,
+                a.max_iters, a.occlusion, bt, bi);
+    }
+  }
+
+  // 4. the merge: strict <, so exact-t ties stay with spheres and planes
+  if (a.occlusion) {
+    a.occ_out[r] = bt < mt;
+    return;
+  }
+  if (bt < t_best) {
+    t_best = bt;
+    kind = kKindTriangle;
+    idx = bi;
+  }
+  a.kind_out[r] = kind;
+  a.i_out[r] = idx;
+  a.t_out[r] = t_best;
+}
+
+// kFused: the fused search (rt_grid_search); else the walk from a
+// walk_init state (rt_grid_walk).
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
-grid_walk_kernel(const float* __restrict__ orig,     // [N,3]
-                 const float* __restrict__ dir,      // [N,3]
-                 const int* __restrict__ cell0,      // [N,3]
-                 const float* __restrict__ tmax0,    // [N,3]
-                 const int* __restrict__ step0,      // [N,3]
-                 const float* __restrict__ tdelta0,  // [N,3]
-                 const uint8_t* __restrict__ act0,   // [N] bool
-                 const float* __restrict__ best_t0,  // [N]
-                 const int* __restrict__ best_i0,    // [N]
-                 const float* __restrict__ max_t,    // [N] (occlusion only)
-                 const int2* __restrict__ cells,     // [ncells] offset, count
-                 const float4* __restrict__ slots,   // [n_slots, 3]
-                 int n, int nx, int ny, int nz, float t_min, int max_iters,
-                 int occlusion, float* __restrict__ t_out,
-                 int* __restrict__ i_out) {
+grid_walk_kernel(const WalkArgs a) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n) return;
-  float bt = best_t0[r];
-  int bi = best_i0[r];
-  if (act0[r])
-    walk_lane(r, orig, dir, cell0, tmax0, step0, tdelta0, max_t, cells, slots,
-              nx, ny, nz, t_min, max_iters, occlusion, bt, bi);
-  t_out[r] = bt;
-  i_out[r] = bi;
+  if (r >= a.n) return;
+  if (kFused) {
+    search_lane(a, r);
+    return;
+  }
+  float bt = a.best_t0[r];
+  int bi = a.best_i0[r];
+  if (a.act[r]) {
+    Lane l;
+    l.ox = a.orig[3 * r];
+    l.oy = a.orig[3 * r + 1];
+    l.oz = a.orig[3 * r + 2];
+    l.dx = a.dir[3 * r];
+    l.dy = a.dir[3 * r + 1];
+    l.dz = a.dir[3 * r + 2];
+    l.cx = a.cell0[3 * r];
+    l.cy = a.cell0[3 * r + 1];
+    l.cz = a.cell0[3 * r + 2];
+    l.tmx = a.tmax0[3 * r];
+    l.tmy = a.tmax0[3 * r + 1];
+    l.tmz = a.tmax0[3 * r + 2];
+    l.sx = a.step0[3 * r];
+    l.sy = a.step0[3 * r + 1];
+    l.sz = a.step0[3 * r + 2];
+    l.tdx = a.tdelta0[3 * r];
+    l.tdy = a.tdelta0[3 * r + 1];
+    l.tdz = a.tdelta0[3 * r + 2];
+    walk_lane(l, a.occlusion ? a.max_t[r] : 0.0f, a.cells, a.slots, a.nx,
+              a.ny, a.nz, a.t_min, a.max_iters, a.occlusion, bt, bi);
+  }
+  a.t_out[r] = bt;
+  a.i_out[r] = bi;
+}
+
+template <bool kFused>
+int launch(const WalkArgs& a, void* stream) {
+  if (a.n <= 0) return 0;
+  const int blocks = (a.n + kThreads - 1) / kThreads;
+  grid_walk_kernel<kFused>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fields both entries take.
+WalkArgs walk_args(const void* orig, const void* dir, const void* act,
+                   const void* max_t, const void* cells, const void* slots,
+                   int n, int nx, int ny, int nz, float t_min, int max_iters,
+                   int occlusion, void* t_out, void* i_out) {
+  WalkArgs a = {};
+  a.orig = static_cast<const float*>(orig);
+  a.dir = static_cast<const float*>(dir);
+  a.act = static_cast<const uint8_t*>(act);
+  a.max_t = static_cast<const float*>(max_t);
+  a.cells = static_cast<const int2*>(cells);
+  a.slots = static_cast<const float4*>(slots);
+  a.n = n;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.max_iters = max_iters;
+  a.occlusion = occlusion;
+  a.t_min = t_min;
+  a.t_out = static_cast<float*>(t_out);
+  a.i_out = static_cast<int*>(i_out);
+  return a;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. `cells`: [ncells, 2] i32 (offset, count) and
-// `slots`: [n_slots, 12] f32, the table of ops/walk.pack_cell_table.
-// Launches on `stream`, does not synchronise, and returns cudaGetLastError()
-// (0 on success).
+// Plain C entries for ctypes. `cells`: [ncells, 2] i32 (offset, count) and
+// `slots`: [n_slots, 12] f32, the table of ops/walk.pack_cell_table. Each
+// launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 on success).
+
+// The walk from a walk_init state → t_out [N] f32, i_out [N] i32.
 extern "C" int rt_grid_walk(const void* orig, const void* dir,
                             const void* cell0, const void* tmax0,
                             const void* step0, const void* tdelta0,
@@ -156,16 +491,50 @@ extern "C" int rt_grid_walk(const void* orig, const void* dir,
                             int nx, int ny, int nz, float t_min, int max_iters,
                             int occlusion, void* t_out, void* i_out,
                             void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  grid_walk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(orig), static_cast<const float*>(dir),
-      static_cast<const int*>(cell0), static_cast<const float*>(tmax0),
-      static_cast<const int*>(step0), static_cast<const float*>(tdelta0),
-      static_cast<const uint8_t*>(act0), static_cast<const float*>(best_t0),
-      static_cast<const int*>(best_i0), static_cast<const float*>(max_t),
-      static_cast<const int2*>(cells), static_cast<const float4*>(slots), n,
-      nx, ny, nz, t_min, max_iters, occlusion, static_cast<float*>(t_out),
-      static_cast<int*>(i_out));
-  return static_cast<int>(cudaGetLastError());
+  WalkArgs a = walk_args(orig, dir, act0, max_t, cells, slots, n, nx, ny, nz,
+                         t_min, max_iters, occlusion, t_out, i_out);
+  a.cell0 = static_cast<const int*>(cell0);
+  a.tmax0 = static_cast<const float*>(tmax0);
+  a.step0 = static_cast<const int*>(step0);
+  a.tdelta0 = static_cast<const float*>(tdelta0);
+  a.best_t0 = static_cast<const float*>(best_t0);
+  a.best_i0 = static_cast<const int*>(best_i0);
+  return launch<false>(a, stream);
+}
+
+// The fused search of one GridTracer call. `act` may be null (every lane
+// active). Nearest (occlusion = 0) → kind_out, i_out [N] i32 and t_out [N]
+// f32; occlusion (max_t given) → occ_out [N] bool. The spheres: sph_c
+// [ns,3], sph_r [ns]; the planes: pl_p, pl_n [np,3]; the grid's box: bmin,
+// cell_size, inv_cell [3]; its overflow list: ov_v0, ov_e1, ov_e2 [n_ov,3],
+// ov_ids [n_ov] i32.
+extern "C" int rt_grid_search(
+    const void* orig, const void* dir, const void* act, const void* max_t,
+    const void* cells, const void* slots, const void* sph_c,
+    const void* sph_r, const void* pl_p, const void* pl_n, const void* bmin,
+    const void* cell_size, const void* inv_cell, const void* ov_v0,
+    const void* ov_e1, const void* ov_e2, const void* ov_ids, int n, int nx,
+    int ny, int nz, int ns, int np, int n_ov, int n_tris, float t_min,
+    int max_iters, int occlusion, void* kind_out, void* i_out, void* t_out,
+    void* occ_out, void* stream) {
+  WalkArgs a = walk_args(orig, dir, act, max_t, cells, slots, n, nx, ny, nz,
+                         t_min, max_iters, occlusion, t_out, i_out);
+  a.sph_c = static_cast<const float*>(sph_c);
+  a.sph_r = static_cast<const float*>(sph_r);
+  a.pl_p = static_cast<const float*>(pl_p);
+  a.pl_n = static_cast<const float*>(pl_n);
+  a.ns = ns;
+  a.np = np;
+  a.bmin = static_cast<const float*>(bmin);
+  a.cell_size = static_cast<const float*>(cell_size);
+  a.inv_cell = static_cast<const float*>(inv_cell);
+  a.ov_v0 = static_cast<const float*>(ov_v0);
+  a.ov_e1 = static_cast<const float*>(ov_e1);
+  a.ov_e2 = static_cast<const float*>(ov_e2);
+  a.ov_ids = static_cast<const int*>(ov_ids);
+  a.n_ov = n_ov;
+  a.n_tris = n_tris;
+  a.kind_out = static_cast<int*>(kind_out);
+  a.occ_out = static_cast<uint8_t*>(occ_out);
+  return launch<true>(a, stream);
 }

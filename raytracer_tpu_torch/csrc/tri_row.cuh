@@ -16,17 +16,15 @@ namespace {
 
 constexpr float kRowDetEps = 1e-8f;
 
-// Möller–Trumbore on one packed row (v0 = a.xyz, e1 = (a.w, b.x, b.y),
-// e2 = (b.z, b.w, c.x), id = c.y) in the op order of geometry.triangle_tuv,
-// folded into (bt, bi) lexicographically: the lowest id wins exact-t ties.
-__device__ __forceinline__ void test_row(float4 a, float4 b, float4 c,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         float t_min, float& bt, int& bi) {
-  const float v0x = a.x, v0y = a.y, v0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  const int ic = static_cast<int>(c.y);
+// Möller–Trumbore on one triangle (v0, e1 = v1 - v0, e2 = v2 - v0) in the
+// op order of geometry.triangle_tuv → its hit distance, +inf on a miss
+// (never NaN: every comparison with a NaN fails, so the test misses).
+__device__ __forceinline__ float tri_row_t(float v0x, float v0y, float v0z,
+                                           float e1x, float e1y, float e1z,
+                                           float e2x, float e2y, float e2z,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float t_min) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
@@ -42,7 +40,19 @@ __device__ __forceinline__ void test_row(float4 a, float4 b, float4 c,
   const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
   const bool hit = det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                    u + v <= 1.0f && t > t_min;
-  const float tc = hit ? t : CUDART_INF_F;
+  return hit ? t : CUDART_INF_F;
+}
+
+// tri_row_t on one packed row (v0 = a.xyz, e1 = (a.w, b.x, b.y),
+// e2 = (b.z, b.w, c.x), id = c.y), folded into (bt, bi)
+// lexicographically: the lowest id wins exact-t ties.
+__device__ __forceinline__ void test_row(float4 a, float4 b, float4 c,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float t_min, float& bt, int& bi) {
+  const int ic = static_cast<int>(c.y);
+  const float tc = tri_row_t(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox,
+                             oy, oz, dx, dy, dz, t_min);
   if (tc < bt || (tc == bt && ic < bi)) {
     bt = tc;
     bi = ic;

@@ -114,6 +114,17 @@ def load_library() -> ctypes.CDLL:
             + [i] * 4                     # n, nx, ny, nz
             + [ctypes.c_float, i, i]      # t_min, max_iters, occlusion
             + [p, p, p])                  # t_out, i_out, stream
+        lib.rt_grid_search.restype = i
+        lib.rt_grid_search.argtypes = (
+            [p] * 17                      # orig, dir, act, max_t, cells,
+                                          # slots, sph_c, sph_r, pl_p, pl_n,
+                                          # bmin, cell_size, inv_cell, ov_v0,
+                                          # ov_e1, ov_e2, ov_ids
+            + [i] * 8                     # n, nx, ny, nz, ns, np, n_ov,
+                                          # n_tris
+            + [ctypes.c_float, i, i]      # t_min, max_iters, occlusion
+            + [p] * 5)                    # kind_out, i_out, t_out, occ_out,
+                                          # stream
         f = ctypes.c_float
         lib.rt_fused_whitted.restype = i
         lib.rt_fused_whitted.argtypes = (

@@ -10,6 +10,11 @@ occlusion (any-hit) mode. Both versions start from `accel.grid.walk_init`.
 kernel (or raises — there is no fallback), a CPU tensor runs
 `grid_walk_reference`. Hit distances of the two agree to FMA-contraction
 noise (rtol 2e-6) and winner ids match except on knife edges.
+
+`grid_search_cuda` is the kernel's fused entry, what `GridTracer.nearest`
+and `GridTracer.occluded` launch on the card: the dense sphere and plane
+tests, `walk_init`, the walk and the merge in one launch, bit-equal to
+that composition of torch ops (which the CPU runs).
 """
 
 import dataclasses
@@ -20,9 +25,12 @@ from raytracer_tpu_torch.accel import grid as grid_mod
 from raytracer_tpu_torch.kernels.build import check_arg
 from raytracer_tpu_torch.ops import geometry as geom
 
-# Kernel launches since the last reset. Incremented only where the kernel
-# is launched; callers that must show the kernel ran set it to 0 and read it.
+# Kernel launches since the last reset, from either entry. Incremented only
+# where the kernel is launched; callers that must show the kernel ran set it
+# to 0 and read it. `search_launches` counts those of the fused entry
+# (`grid_search_cuda`) alone.
 launches = 0
+search_launches = 0
 
 # Lanes per chunk of the plain version: bounds its [lanes, C, 10] candidate
 # gather (~5 KB per lane at C = 128).
@@ -146,6 +154,79 @@ def grid_walk_cuda(grid, table, orig, direc, state, t_min,
         raise RuntimeError(f"grid walk kernel launch failed: CUDA error {rc}")
     launches += 1
     return t_out, i_out
+
+
+def grid_search_cuda(base, grid, table, orig, direc, t_min, max_t=None,
+                     active=None):
+    """One launch of the fused search on the current stream: what
+    `trace_ops.nearest_hit(base, ...)` (or `occluded`), `grid_walk` and the
+    merge compute together, bit for bit. `base` is the tracer's mesh-less
+    scene, its sphere and plane tables read at this call. Nearest (`max_t`
+    None) → `trace_ops.Hit`; occlusion → bool [N], occluded below `max_t`.
+    `active` [N] bool (or None: all) masks lanes out of the walk; the dense
+    tests run on every lane.
+
+    The host's cost is the point of this entry: it checks what varies from
+    call to call (the rays, the mask, `max_t`, the sphere and plane tables:
+    device, dtype, shape, made contiguous first) and takes the grid and
+    its table as GridTracer built them."""
+    global launches, search_launches
+    from raytracer_tpu_torch.kernels.build import load_library
+    from raytracer_tpu_torch.ops.trace import Hit
+
+    n, dev = orig.shape[0], orig.device
+    if dev.type != "cuda":
+        raise ValueError(f"grid_search_cuda needs CUDA rays, got {dev}")
+    if n >= (1 << 31) // 3:
+        raise ValueError(f"too many rays for one launch: {n}")
+    f32 = torch.float32
+    orig, direc = orig.contiguous(), direc.contiguous()
+    sp, pl = base.spheres, base.planes
+    sph_c, sph_r = sp.center.contiguous(), sp.radius.contiguous()
+    pl_p, pl_n = pl.point.contiguous(), pl.normal.contiguous()
+    ns, np_ = sph_c.shape[0], pl_p.shape[0]
+    args = [("orig", orig, f32, (n, 3)), ("direc", direc, f32, (n, 3)),
+            ("spheres.center", sph_c, f32, (ns, 3)),
+            ("spheres.radius", sph_r, f32, (ns,)),
+            ("planes.point", pl_p, f32, (np_, 3)),
+            ("planes.normal", pl_n, f32, (np_, 3))]
+    if active is not None:
+        active = active.contiguous()
+        args.append(("active", active, torch.bool, (n,)))
+    occl = max_t is not None
+    if occl:
+        max_t = max_t.contiguous()
+        args.append(("max_t", max_t, f32, (n,)))
+    for name, x, dt, shape in args:
+        check_arg(name, x, dt, shape, dev)
+    if occl:
+        kind = idx = t = None
+        occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    else:
+        kind = torch.empty((n,), dtype=torch.int32, device=dev)
+        idx = torch.empty((n,), dtype=torch.int32, device=dev)
+        t = torch.empty((n,), dtype=f32, device=dev)
+        occ = None
+    if n:
+        nx, ny, nz = grid.res
+        ptr = lambda x: None if x is None else x.data_ptr()
+        rc = load_library().rt_grid_search(
+            orig.data_ptr(), direc.data_ptr(), ptr(active), ptr(max_t),
+            table.cells.data_ptr(), table.slots.data_ptr(), sph_c.data_ptr(),
+            sph_r.data_ptr(), pl_p.data_ptr(), pl_n.data_ptr(),
+            grid.bmin.data_ptr(), grid.cell_size.data_ptr(),
+            grid.inv_cell.data_ptr(), grid.ov_v0.data_ptr(),
+            grid.ov_e1.data_ptr(), grid.ov_e2.data_ptr(),
+            grid.overflow.data_ptr(), n, nx, ny, nz, ns, np_,
+            grid.overflow.shape[0], grid.n_tris, float(t_min),
+            _max_iters(grid), int(occl), ptr(kind), ptr(idx), ptr(t),
+            ptr(occ), torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"grid search kernel launch failed: CUDA "
+                               f"error {rc}")
+        launches += 1
+        search_launches += 1
+    return occ if occl else Hit(kind=kind, idx=idx, t=t)
 
 
 @torch.no_grad()

@@ -25,6 +25,7 @@ from raytracer_tpu_torch.ops import cull_sweep as CS
 from raytracer_tpu_torch.ops import fused as F
 from raytracer_tpu_torch.ops import mat_trace as MT
 from raytracer_tpu_torch.ops import pallas_trace as PT
+from raytracer_tpu_torch.ops import trace as TR
 from raytracer_tpu_torch.ops import walk as W
 from raytracer_tpu_torch.ops.geometry import pixel_coords, raygen
 
@@ -180,6 +181,481 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_case):
                                       slots=table.slots[:, :10].contiguous())):
         with pytest.raises(ValueError, match="shape"):
             W.grid_walk_cuda(g, short, orig, dirs, state, opts.t_min)
+
+
+# --- the walk kernel's fused entry: one launch a GridTracer search ------------
+# held bit for bit to the composition it replaces: the dense sphere and plane
+# search (ops/trace.dense_nearest / dense_occluded), walk_init, the walk from
+# that state (grid_walk_cuda on the card, grid_walk_plain on the CPU) and
+# the merge
+
+
+def composed_search(tracer, orig, dirs, t_min, max_t=None, active=None):
+    """What a GridTracer search computes as separate ops → Hit or bool."""
+    sp, pl, g = tracer._base.spheres, tracer._base.planes, tracer._grid
+    orig, dirs = orig.contiguous(), dirs.contiguous()
+    state = walk_init(g, orig, dirs, t_min, active)
+    walk = W.grid_walk_cuda if orig.device.type == "cuda" else W.grid_walk_plain
+    tb, ib = walk(g, tracer._table, orig, dirs, state, t_min, max_t)
+    if max_t is None:
+        base = TR.dense_nearest(orig, dirs, t_min, sp.center, sp.radius,
+                                pl.point, pl.normal)
+        return TR.merge_triangles(base, tb, ib)
+    occ = TR.dense_occluded(orig, dirs, max_t, t_min, sp.center, sp.radius,
+                            pl.point, pl.normal)
+    return occ | (tb < max_t)
+
+
+class ComposedGridTracer:
+    """A GridTracer whose searches run `composed_search`; counts them."""
+
+    def __init__(self, tracer):
+        self.inner, self.device, self.calls = tracer, tracer.device, 0
+
+    def nearest(self, orig, direc, t_min, tri_chunk, active=None):
+        self.calls += 1
+        return composed_search(self.inner, orig, direc, t_min, None, active)
+
+    def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
+        self.calls += 1
+        return composed_search(self.inner, orig, direc, t_min, max_t, active)
+
+
+class RecordingTracer:
+    """A tracer that keeps a copy of every search's inputs (orig, dirs,
+    t_min, max_t or None, active) and answers with `inner`."""
+
+    def __init__(self, inner):
+        self.inner, self.device, self.searches = inner, inner.device, []
+
+    def _keep(self, *args):
+        self.searches.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                   for x in args))
+
+    def nearest(self, orig, direc, t_min, tri_chunk, active=None):
+        self._keep(orig, direc, t_min, None, active)
+        return self.inner.nearest(orig, direc, t_min, tri_chunk, active)
+
+    def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
+        self._keep(orig, direc, t_min, max_t, active)
+        return self.inner.occluded(orig, direc, max_t, t_min, tri_chunk,
+                                   active)
+
+
+def frame_searches(device, w=1920, h=1080, scene=None, capacity=None):
+    """config4 (or `scene`, with config4's camera and options) at w×h d4
+    through a GridTracer on `device` → (tracer, opts, every search's
+    inputs in call order: per bounce the nearest, then each light's
+    shadow search)."""
+    from raytracer_tpu_torch.renderer import render
+
+    s4, cam, opts = presets.config4_mesh()
+    scene = s4 if scene is None else scene
+    opts = dataclasses.replace(opts, width=w, height=h, tile_rays=w * h)
+    kw = {} if capacity is None else {"capacity": capacity}
+    tracer = GridTracer.build(scene, device, **kw)
+    rec = RecordingTracer(tracer)
+    with torch.no_grad():
+        render(scene, cam, opts, device=device, tracer=rec)
+    return tracer, opts, rec.searches
+
+
+def search_scene(case):
+    """config4's mesh and lights under other sphere and plane tables:
+    "no_sphere", "no_plane", "none" (neither), "several" (three spheres, one
+    of radius 0 — a padding sphere never hits — and two planes)."""
+    from raytracer_tpu_torch.core.types import Planes, Spheres
+
+    scene = presets.config4_mesh()[0]
+    sp, pl = scene.spheres, scene.planes
+    several_sp = Spheres.build(
+        [(2.6, -0.4, -7.2), (-2.2, 0.3, -6.0), (0.0, 0.5, -4.0)],
+        [1.1, 0.7, 0.0], [1, 2, 0])
+    several_pl = Planes.build([(0.0, -1.5, 0.0), (0.0, 0.0, -12.0)],
+                              [(0.0, 1.0, 0.0), (0.0, 0.0, 1.0)],
+                              [(1.0, 0.0, 0.0), (1.0, 0.0, 0.0)],
+                              [(0.0, 0.0, 1.0), (0.0, 1.0, 0.0)], [2, 0])
+    tables = {"no_sphere": (Spheres.empty(), pl),
+              "no_plane": (sp, Planes.empty()),
+              "none": (Spheres.empty(), Planes.empty()),
+              "several": (several_sp, several_pl)}[case]
+    return scene.replace(spheres=tables[0], planes=tables[1])
+
+
+def tie_scene(case):
+    """A ray (0.25, 0.25, 4) → -z that meets a unit sphere at (0.25, 0.25,
+    0), the plane z = 1 and a triangle of the plane z = 1 all at t = 3
+    exactly: "all" keeps the three, "plane_tri" drops the sphere,
+    "sphere_tri" the plane. → (scene, orig [N,3], dirs [N,3]) with rays
+    around the tie ray."""
+    from raytracer_tpu_torch.core.types import Meshes, Planes, Spheres
+
+    scene = presets.config4_mesh()[0]
+    sp = Spheres.build([(0.25, 0.25, 0.0)], [1.0], [1])
+    pl = Planes.build([(0.0, 0.0, 1.0)], [(0.0, 0.0, 1.0)],
+                      [(1.0, 0.0, 0.0)], [(0.0, 1.0, 0.0)], [2])
+    verts = np.array([(0, 0, 1), (1, 0, 1), (0, 1, 1), (-1, -1, 1),
+                      (-1, 0, 1), (0, -1, 1)], np.float32)
+    me = Meshes.build(verts, [(0, 1, 2), (3, 4, 5)], [0, 0])
+    scene = scene.replace(
+        spheres=sp if case != "plane_tri" else Spheres.empty(),
+        planes=pl if case != "sphere_tri" else Planes.empty(), meshes=me)
+    xy = np.array([(0.25, 0.25), (0.5, 0.25), (0.125, 0.5), (-0.5, -0.5),
+                   (0.25, 0.0), (2.0, 2.0)], np.float32)
+    orig = np.concatenate([xy, np.full((len(xy), 1), 4.0, np.float32)], 1)
+    dirs = np.tile(np.array([0.0, 0.0, -1.0], np.float32), (len(xy), 1))
+    return scene, torch.from_numpy(orig), torch.from_numpy(dirs)
+
+
+def assert_search_equal(got, want):
+    """Hits (kind, idx, t's bits) or occlusion bits equal, every lane."""
+    if isinstance(want, torch.Tensor):
+        assert got.dtype == torch.bool and torch.equal(got, want)
+        return
+    assert torch.equal(got.kind, want.kind)
+    assert torch.equal(got.idx, want.idx)
+    assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+
+
+def fused_and_composed(tracer, orig, dirs, t_min, max_t=None, active=None):
+    """The fused launch (one, counted) and the composition on the card."""
+    before = W.search_launches
+    got = W.grid_search_cuda(tracer._base, tracer._grid, tracer._table, orig,
+                             dirs, t_min, max_t, active)
+    assert W.search_launches == before + 1
+    want = composed_search(tracer, orig, dirs, t_min, max_t, active)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def lane_masks(n, seed):
+    """(zero-direction lanes, parked lanes) masks, a quarter each."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand(n, generator=gen)
+    return u < 0.25, (u >= 0.25) & (u < 0.5)
+
+
+def outside_rays(tracer, n, seed):
+    """n rays from points in and around the grid's box (up to half its
+    extent outside on each side), in random directions; a tenth point away
+    from the box along an axis."""
+    g = tracer._grid
+    rng = np.random.default_rng(seed)
+    lo = g.bmin.cpu().numpy()
+    ext = (g.cell_size.cpu() * torch.tensor(g.res, dtype=torch.float32)
+           ).numpy()
+    o = (lo + ext * rng.uniform(-0.5, 1.5, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d[: n // 10] = 0.0
+    d[: n // 10, 0] = np.where(o[: n // 10, 0] > lo[0] + ext[0] / 2, 1.0,
+                               -1.0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d.astype(np.float32))
+
+
+def test_grid_search_wrapper_rejects_cpu_tensors():
+    scene, cam, opts = presets.config4_mesh()
+    tracer = GridTracer.build(scene, "cpu")
+    orig, dirs = _rays(cam, "cpu", 8, 4)
+    before = (W.launches, W.search_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        W.grid_search_cuda(tracer._base, tracer._grid, tracer._table, orig,
+                           dirs, opts.t_min)
+    assert (W.launches, W.search_launches) == before
+
+
+def brute_force(tracer, scene, orig, dirs, t_min, max_t=None, active=None):
+    """The dense search over every primitive of `scene` (all triangles too)
+    on the active lanes, over the tracer's spheres and planes alone on the
+    others."""
+    full = scene.to(orig.device)
+    if max_t is None:
+        every = TR.nearest_hit(full, orig, dirs, t_min, 4096)
+        dense = TR.nearest_hit(tracer._base, orig, dirs, t_min, 4096)
+        if active is None:
+            return every
+        return TR.Hit(*(torch.where(active, getattr(every, f),
+                                    getattr(dense, f))
+                        for f in ("kind", "idx", "t")))
+    every = TR.occluded(full, orig, dirs, max_t, t_min, 4096)
+    dense = TR.occluded(tracer._base, orig, dirs, max_t, t_min, 4096)
+    return every if active is None else torch.where(active, every, dense)
+
+
+def grid_search(tracer, orig, dirs, t_min, max_t=None, active=None):
+    if max_t is None:
+        return tracer.nearest(orig, dirs, t_min, 4096, active)
+    return tracer.occluded(orig, dirs, max_t, t_min, 4096, active)
+
+
+def small_blob(scene):
+    """`scene` with config4's blob at subdivision 3 (1,280 triangles, where
+    the asset has 20,480), placed as config4 places it: a mesh the brute
+    force searches quickly."""
+    from raytracer_tpu_torch.core.types import Meshes
+    from raytracer_tpu_torch.io import meshgen
+
+    verts, tris = meshgen.bumpy_sphere(subdiv=3, radius=1.3)
+    verts = verts + np.array([0.0, -0.1, -5.5], np.float32)
+    return scene.replace(meshes=Meshes.build(
+        verts, tris, np.zeros((tris.shape[0],), np.int32),
+        normals=meshgen.vertex_normals(verts, tris)))
+
+
+@pytest.mark.parametrize("case", ["config4", "several", "no_sphere",
+                                  "overflow"])
+def test_cpu_grid_searches_are_the_brute_force_winners(case):
+    """On the CPU a GridTracer's searches (the composition the fused entry
+    is held to) find what the dense search over every primitive finds on
+    active lanes — winner, distance, occlusion bit — and what the sphere
+    and plane tests alone find on parked lanes, on every search of a
+    48×27 frame of config4's scene with a smaller blob; with a quarter of
+    each search's lanes parked besides."""
+    scene = small_blob(presets.config4_mesh()[0] if case in (
+        "config4", "overflow") else search_scene(case))
+    before = W.search_launches
+    tracer, _, searches = frame_searches(
+        "cpu", 48, 27, scene=scene,
+        capacity=8 if case == "overflow" else None)
+    assert (tracer._grid.overflow.shape[0] > 0) == (case == "overflow")
+    for k, (orig, dirs, t_min, max_t, act) in enumerate(searches):
+        parked = lane_masks(orig.shape[0], seed=k)[1]
+        for a in (act, act & ~parked):
+            got = grid_search(tracer, orig, dirs, t_min, max_t, a)
+            assert_search_equal(got, brute_force(tracer, scene, orig, dirs,
+                                                 t_min, max_t, a))
+    assert W.search_launches == before  # nothing fused off the card
+
+
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+def test_cpu_grid_searches_outside_the_grid(mode):
+    """Rays from in and around the grid's box, some never entering it, half
+    of them parked: the brute-force winners on the others."""
+    scene = small_blob(presets.config4_mesh()[0])
+    tracer = GridTracer.build(scene, "cpu")
+    orig, dirs = outside_rays(tracer, 3000, 21)
+    gen = torch.Generator().manual_seed(22)
+    act = torch.rand(orig.shape[0], generator=gen) < 0.5
+    max_t = None
+    if mode == "occlusion":
+        max_t = 0.5 + 12.0 * torch.rand(orig.shape[0], generator=gen)
+    got = grid_search(tracer, orig, dirs, 1e-4, max_t, act)
+    assert_search_equal(got, brute_force(tracer, scene, orig, dirs, 1e-4,
+                                         max_t, act))
+    if mode == "nearest":
+        assert int((got.kind == 3).sum()) > 100
+
+
+@pytest.mark.parametrize("case", ["all", "plane_tri", "sphere_tri"])
+def test_cpu_grid_search_exact_t_ties(case):
+    """Exact-t ties between a sphere, a plane and a walked triangle go to
+    the sphere, then the plane, as in the dense search."""
+    scene, orig, dirs = tie_scene(case)
+    tracer = GridTracer.build(scene, "cpu")
+    got = grid_search(tracer, orig, dirs, 1e-4)
+    assert_search_equal(got, brute_force(tracer, scene, orig, dirs, 1e-4))
+    assert float(got.t[0]) == 3.0
+    assert int(got.kind[0]) == {"all": 1, "plane_tri": 2,
+                                "sphere_tri": 1}[case]
+    assert (int(got.kind[1]) == 3) == (case == "sphere_tri")
+    max_t = torch.full_like(orig[:, 0], 3.5)
+    assert bool(grid_search(tracer, orig, dirs, 1e-4, max_t)[:5].all())
+
+
+@pytest.fixture(scope="module")
+def frame_case():
+    """The searches of one config4 1920×1080 d4 frame on the card."""
+    return frame_searches("cuda")
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_grid_search_equals_composition_on_a_frame(frame_case):
+    """Every search of a 1080p frame (bounce 0 and the bounce-1 wavefront:
+    the nearest and two shadow searches each), bit for bit."""
+    tracer, opts, searches = frame_case
+    assert len(searches) >= 6 and len(searches) % 3 == 0
+    for orig, dirs, t_min, max_t, act in searches:
+        got, want = fused_and_composed(tracer, orig, dirs, t_min, max_t, act)
+        assert_search_equal(got, want)
+    # the bounce-1 wavefront: a few live lanes among dead ones
+    assert 0 < int(searches[3][4].sum()) < searches[3][0].shape[0] // 4
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("call", [3, 4])
+def test_grid_search_dead_and_parked_lanes(frame_case, call):
+    """The bounce-1 nearest search (call 3) and its first shadow search
+    (call 4) with a quarter of the lanes dead with zero directions and a
+    quarter parked (inactive, directions kept): the dense bits of every
+    lane, the walk on none of them."""
+    tracer, _, searches = frame_case
+    orig, dirs, t_min, max_t, act = searches[call]
+    dead, parked = lane_masks(orig.shape[0], seed=call)
+    dead, parked = dead.to("cuda"), parked.to("cuda")
+    dirs = torch.where(dead[:, None], 0.0, dirs)
+    act = act & ~dead & ~parked
+    got, want = fused_and_composed(tracer, orig, dirs, t_min, max_t, act)
+    assert_search_equal(got, want)
+    sp, pl = tracer._base.spheres, tracer._base.planes
+    if max_t is None:
+        dense = TR.dense_nearest(orig, dirs, t_min, sp.center, sp.radius,
+                                 pl.point, pl.normal)
+        off = dead | parked
+        assert torch.equal(got.kind[off], dense.kind[off])
+        assert torch.equal(got.t[off], dense.t[off])
+    else:  # off the walk, a lane's bit is the dense tests' alone
+        dense = TR.dense_occluded(orig, dirs, max_t, t_min, sp.center,
+                                  sp.radius, pl.point, pl.normal)
+        assert torch.equal(got[dead | parked], dense[dead | parked])
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+@pytest.mark.parametrize("capacity", [None, 96])
+def test_grid_search_outside_the_grid(mode, capacity):
+    """Rays from inside and outside the grid's box, some never entering it,
+    half of them active, on the built grid and on one whose cells overflow
+    (capacity 96: 106 triangles in the overflow list)."""
+    scene = presets.config4_mesh()[0]
+    kw = {} if capacity is None else {"capacity": capacity}
+    tracer = GridTracer.build(scene, "cuda", **kw)
+    assert (tracer._grid.overflow.shape[0] > 0) == (capacity is not None)
+    orig, dirs = (x.to("cuda") for x in outside_rays(tracer, 50_000, 21))
+    gen = torch.Generator().manual_seed(22)
+    act = (torch.rand(orig.shape[0], generator=gen) < 0.5).to("cuda")
+    max_t = None
+    if mode == "occlusion":
+        max_t = (0.5 + 12.0 * torch.rand(orig.shape[0], generator=gen)).to(
+            "cuda")
+    for a in (act, None):
+        got, want = fused_and_composed(tracer, orig, dirs, 1e-4, max_t, a)
+        assert_search_equal(got, want)
+    if mode == "nearest":
+        assert int((got.kind == 3).sum()) > 500
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_grid_search_frame_with_overflow():
+    """A 480×270 frame's searches on a grid whose cells overflow (capacity
+    96: 106 triangles in the overflow list)."""
+    tracer, _, searches = frame_searches("cuda", 480, 270, capacity=96)
+    assert tracer._grid.overflow.shape[0] > 0
+    for orig, dirs, t_min, max_t, act in searches:
+        got, want = fused_and_composed(tracer, orig, dirs, t_min, max_t, act)
+        assert_search_equal(got, want)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("case", ["no_sphere", "no_plane", "none",
+                                  "several"])
+def test_grid_search_scene_tables(case):
+    """Scenes with no sphere, no plane, neither, or several of each (a
+    padding sphere of radius 0 among them): a 480×270 frame's searches."""
+    tracer, _, searches = frame_searches("cuda", 480, 270,
+                                         scene=search_scene(case))
+    for orig, dirs, t_min, max_t, act in searches:
+        got, want = fused_and_composed(tracer, orig, dirs, t_min, max_t, act)
+        assert_search_equal(got, want)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("case", ["all", "plane_tri", "sphere_tri"])
+def test_grid_search_exact_t_ties(case):
+    """A sphere, a plane and a triangle hit at exactly t = 3: the sphere
+    wins, then the plane (strict < at each merge)."""
+    scene, orig, dirs = tie_scene(case)
+    tracer = GridTracer.build(scene, "cuda")
+    orig, dirs = orig.to("cuda"), dirs.to("cuda")
+    got, want = fused_and_composed(tracer, orig, dirs, 1e-4)
+    assert_search_equal(got, want)
+    assert float(got.t[0]) == 3.0
+    assert int(got.kind[0]) == {"all": 1, "plane_tri": 2, "sphere_tri": 1}[case]
+    max_t = torch.full_like(orig[:, 0], 3.5)
+    got, want = fused_and_composed(tracer, orig, dirs, 1e-4, max_t)
+    assert_search_equal(got, want)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+def test_grid_search_strided_inputs(mode):
+    """Strided rays, mask and max_t (every other row of wider tensors) give
+    the composition's answer on the contiguous copies."""
+    scene = presets.config4_mesh()[0]
+    tracer = GridTracer.build(scene, "cuda")
+    orig, dirs = (x.to("cuda") for x in outside_rays(tracer, 20_000, 31))
+    gen = torch.Generator().manual_seed(32)
+    wide = torch.cat([orig, dirs], 1)
+    orig_s, dirs_s = wide[:, :3], wide[:, 3:]
+    act_s = (torch.rand(2 * orig.shape[0], generator=gen) < 0.5).to(
+        "cuda")[::2]
+    max_s = None
+    if mode == "occlusion":
+        max_s = (0.5 + 12.0 * torch.rand(2 * orig.shape[0], generator=gen)
+                 ).to("cuda")[::2]
+    assert not (orig_s.is_contiguous() or act_s.is_contiguous())
+    got = W.grid_search_cuda(tracer._base, tracer._grid, tracer._table,
+                             orig_s, dirs_s, 1e-4, max_s, act_s)
+    want = composed_search(tracer, orig, dirs, 1e-4,
+                           None if max_s is None else max_s.contiguous(),
+                           act_s.contiguous())
+    torch.cuda.synchronize()
+    assert_search_equal(got, want)
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+def test_grid_search_rejects_bad_inputs(cuda_case):
+    """f64 directions or max_t, a mask that is not bool or not [N]: refused
+    before any launch."""
+    tracer, orig, dirs, opts = cuda_case
+    n = orig.shape[0]
+    max_t = torch.full((n,), 5.0, device="cuda")
+    act = torch.ones(n, dtype=torch.bool, device="cuda")
+    before = (W.launches, W.search_launches)
+    for kw, match in ((dict(direc=dirs.double()), "direc"),
+                      (dict(max_t=max_t.double()), "max_t"),
+                      (dict(active=act.to(torch.uint8)), "active"),
+                      (dict(active=act[:-1]), "shape")):
+        args = {"orig": orig, "direc": dirs, "t_min": opts.t_min, **kw}
+        with pytest.raises(ValueError, match=match):
+            W.grid_search_cuda(tracer._base, tracer._grid, tracer._table,
+                               **args)
+    assert (W.launches, W.search_launches) == before
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
+@pytest.mark.parametrize("plan", [False, True])
+def test_grid_search_frame_is_the_composition(plan):
+    """A config4 1080p d4 frame through the fused entry and through the
+    composition: the image, the ray count and (with `plan`, every bounce)
+    the plan planes bit for bit; 3 fused launches a bounce (a nearest and
+    two lights)."""
+    from raytracer_tpu_torch.renderer import render
+
+    scene, cam, opts = presets.config4_mesh()
+    tracer = GridTracer.build(scene, "cuda")
+    composed = ComposedGridTracer(tracer)
+    kw = dict(device="cuda", count_rays=True, record_plan=plan)
+    before = W.search_launches
+    got = render(scene, cam, opts, tracer=tracer, **kw)
+    fused = W.search_launches - before
+    want = render(scene, cam, opts, tracer=composed, **kw)
+    assert W.search_launches - before == fused
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if plan:
+        for a, b in zip(got[2] + got[3], want[2] + want[3]):
+            assert torch.equal(a, b)
+        assert fused == 3 * (opts.max_depth + 1)
+    assert fused == composed.calls and fused % 3 == 0 and fused >= 6
 
 
 # --- fused Whitted forward ----------------------------------------------------
