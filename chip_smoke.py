@@ -5,14 +5,13 @@
 Builds the CUDA kernels from raytracer_tpu_torch/csrc (one nvcc per source,
 in parallel) and prints their ptxas register/spill report. Then, per kernel:
 
-- grid walk (K5): its fused entry (`grid_search_cuda`, one launch a
+- grid walk (K5): its one entry (`grid_search_cuda`, one launch a
   GridTracer search) over every search of the main path's config4
-  1920×1080 d4 frame, each bit for bit against the composition it replaces
-  (dense sphere/plane search, walk_init, K5 from that state, the merge)
-  and against the composition with the plain walk (bit-equality
-  reported), each search's walking lanes, cell visits, candidates and the
+  1920×1080 d4 frame, each bit for bit against the plain composition it
+  replaces (dense sphere/plane search, walk_init, the plain walk, the
+  merge), each search's walking lanes, cell visits, candidates and the
   lane efficiency of its candidate loops, the searches' time against the
-  two compositions' and the bound; the config4 and config7 goldens on the
+  composition's and the bound; the config4 and config7 goldens on the
   card, and the main path (load_scene_cli → build_tracer("auto") →
   render_banded) on config4 at 1920×1080, depth 4, checking that the fused
   entry carried every search, with the frame's K5 time read from the
@@ -44,7 +43,7 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
 - brute-force triangle searches (K3: tri_nearest/tri_occluded, K4:
   mat_nearest/mat_occluded): kernel vs plain version on config4's 1080p ray
   sets (K3 and K4 bit for bit, asserted), the two against each other and
-  against the grid walk kernel; the config4 golden through `--tracer
+  against the grid walk; the config4 golden through `--tracer
   pallas` and `--tracer mat`; the main path `cli render --config config4
   --tracer pallas|mat` at 1920×1080, depth 4, checking that all four
   kernels carried it and that each image matches the grid path's frame;
@@ -103,12 +102,13 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   blocks, cap 1024 (the reference's hybrid rung): `cull_audit` (thin/fat
   tiles, the largest counts, its time); the sweep kernel on the hybrid
   frame's calls (the thin tiles' d0 nearest and each light's shadows) bit
-  for bit against its plain version and equal to K5 on the same rays, its
-  calls timed whole (`call_times`: the kernel's and every device op's time
-  by the profiler, each launch's, CUDA events, the host's time) beside
-  its bound (the rays' bytes on live lanes only), the plain version's and
-  K5's, its tests over the warp tests of lane and of live-list order, the
-  CTAs each launch starts and those that stage rows; the hybrid's gate in
+  for bit against its plain version and equal to the grid walk on the
+  same rays, its calls timed whole (`call_times`: the kernel's and every
+  device op's time by the profiler, each launch's, CUDA events, the
+  host's time) beside its bound (the rays' bytes on live lanes only), the
+  plain version's and the grid tracer's (K5) on the same calls, its tests
+  over the warp tests of lane and of live-list order, the CTAs each
+  launch starts and those that stage rows; the hybrid's gate in
   turns:
   the whole culled d0 call against the grid tracer's call, and
   `HybridBand` 5 frames against the grid frame (image within 2e-7, rays,
@@ -121,9 +121,9 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   diverges). Alone: `cull_alone()`.
 
 - the BVH walk (csrc/bvh_walk.cu) against its plain version (bit for bit)
-  and against K5 on config4's 1080p ray sets; the main path `cli render
-  --config config4 --tracer bvh` at 1920×1080 d4 (launches, image vs the
-  grid frame); that frame's 15 calls timed whole (`call_times`) against
+  and against the grid walk on config4's 1080p ray sets; the main path
+  `cli render --config config4 --tracer bvh` at 1920×1080 d4 (launches,
+  image vs the grid frame); that frame's 15 calls timed whole (`call_times`) against
   the bound (the rays' bytes on live lanes only, beside the first
   count's, which charged them to every lane), with each launch's live
   rays and longest walk, and the node steps over the warp steps of lane
@@ -499,20 +499,17 @@ def lane_efficiency(cands):
 
 
 def k5_reset():
-    """Set K5's launch counts (both entries, and the fused one alone) to 0."""
+    """Set K5's launch count to 0."""
     from raytracer_tpu_torch.ops import walk as W
 
-    W.launches = W.search_launches = 0
+    W.launches = 0
 
 
 def k5_searches(path: str) -> int:
-    """K5's launches since `k5_reset()`, each through the fused entry: a
-    main path's searches never walk from a state."""
+    """K5's launches since `k5_reset()`: one a GridTracer search on `path`."""
     from raytracer_tpu_torch.ops import walk as W
 
-    assert W.launches == W.search_launches, (path, W.launches,
-                                             W.search_launches)
-    return W.search_launches
+    return W.launches
 
 
 def frame_searches(scene, cam, opts, tracer, device):
@@ -541,22 +538,16 @@ def frame_searches(scene, cam, opts, tracer, device):
     return calls
 
 
-def composed_search(tracer, o, d, t_min, mx, act, walk):
-    """What one GridTracer search computes as separate ops on the card: the
-    dense sphere and plane search, then `walk` ("state": walk_init and K5's
-    from-state entry; "plain": the plain walk) and the merge → Hit or
-    bool."""
-    from raytracer_tpu_torch.accel.grid import walk_init
+def composed_search(tracer, o, d, t_min, mx, act):
+    """What one GridTracer search computes as separate plain ops on the
+    card: the dense sphere and plane search, then the plain walk and the
+    merge → Hit or bool."""
     from raytracer_tpu_torch.ops import trace as TR
     from raytracer_tpu_torch.ops import walk as W
 
     sp, pl, g, table = (tracer._base.spheres, tracer._base.planes,
                         tracer._grid, tracer._table)
-    if walk == "state":
-        st = walk_init(g, o, d, t_min, act)
-        tb, ib = W.grid_walk_cuda(g, table, o, d, st, t_min, mx)
-    else:
-        tb, ib = W.grid_walk_reference(g, table, o, d, t_min, mx, act)
+    tb, ib = W.grid_walk(g, table, o, d, t_min, mx, act)
     if mx is None:
         base = TR.dense_nearest(o, d, t_min, sp.center, sp.radius, pl.point,
                                 pl.normal)
@@ -577,19 +568,25 @@ def search_equal(got, want) -> bool:
             and torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)))
 
 
+def grid_search(tracer, o, d, t_min, mx, act):
+    """One GridTracer search, K5's one launch on the card → Hit (`mx`
+    None) or bool. The tracer's dense base holds no mesh, so no triangle
+    chunk is read."""
+    if mx is None:
+        return tracer.nearest(o, d, t_min, None, act)
+    return tracer.occluded(o, d, mx, t_min, None, act)
+
+
 def kernel_phase(scene, cam, opts, tracer, device):
-    """K5's fused entry (`grid_search_cuda`, what every GridTracer search
-    launches on the card) over the searches of the main path's config4
-    frame → (max |Δt| against the plain composition, ms, plain ms, bound
-    ms, bound by). Each search is held bit for bit to the composition with
-    K5's from-state entry (dense search, walk_init, the walk, the merge),
-    and to the composition with the plain walk (bit-equality reported,
-    t at T_RTOL and ids asserted); each search's work is reported (lanes
-    that walk, cell visits, candidates, the lane efficiency of the
-    candidate loops). Times: the fused searches, the from-state
-    composition they replace and the plain composition, over the frame's
-    searches (CUDA events), and the fused searches timed whole
-    (`call_times`)."""
+    """K5 (`grid_search_cuda`, what every GridTracer search launches on the
+    card) over the searches of the main path's config4 frame → (max |Δt|
+    against the plain composition, ms, plain ms, bound ms, bound by). Each
+    search is held bit for bit to the plain composition (dense search,
+    walk_init, the plain walk, the merge); each search's work is reported
+    (lanes that walk, cell visits, candidates, the lane efficiency of the
+    candidate loops). Times: the fused searches and the plain composition
+    over the frame's searches (CUDA events), and the fused searches timed
+    whole (`call_times`)."""
     import torch
 
     from raytracer_tpu_torch.accel.grid import walk_init
@@ -608,29 +605,23 @@ def kernel_phase(scene, cam, opts, tracer, device):
                 f"{o.shape[0]} lanes, "
                 f"{o.shape[0] if act is None else int(act.sum())} active)")
         got = run()
-        want = composed_search(tracer, o, d, t_min, mx, act, "state")
-        plain = composed_search(tracer, o, d, t_min, mx, act, "plain")
+        want = composed_search(tracer, o, d, t_min, mx, act)
         torch.cuda.synchronize()
-        assert search_equal(got, want), f"{name}: fused != composition"
-        same = search_equal(got, plain)
         if mx is None:
-            compare_hits(name, (plain.t, plain.idx), (got.t, got.idx))
             hit = torch.isfinite(got.t)
             if bool(hit.any()):
-                err = max(err, float((got.t[hit] - plain.t[hit]).abs().max()))
+                err = max(err, float((got.t[hit] - want.t[hit]).abs().max()))
+            what = f"{int(hit.sum())} hits"
         else:
-            diffs = int((got != plain).sum())
-            print(f"{name}: {int(got.sum())} occluded, occlusion diffs "
-                  f"{diffs}", flush=True)
-            assert diffs == 0, name
-        print(f"  bit-equal to the from-state composition: True, to the "
-              f"plain composition: {same}", flush=True)
+            what = f"{int(got.sum())} occluded"
+        same = search_equal(got, want)
+        print(f"{name}: {what}; bit-equal to the plain composition: {same}",
+              flush=True)
+        assert same, f"{name}: fused != the plain composition"
 
     ms = cuda_ms(lambda: [f() for f in fused], 5)
-    state_ms = cuda_ms(lambda: [composed_search(tracer, *c, "state")
-                                for c in calls], 5)
-    plain_ms = cuda_ms(lambda: [composed_search(tracer, *c, "plain")
-                                for c in calls], 1)
+    plain_ms = cuda_ms(lambda: [composed_search(tracer, *c) for c in calls],
+                       1)
     whole = call_times(fused, "grid_walk_kernel")
     print(f"the fused searches timed whole: {fmt_call(whole)}", flush=True)
     if whole["device_ops"] is not None:
@@ -676,9 +667,8 @@ def kernel_phase(scene, cam, opts, tracer, device):
     print(f"fused searches of the config4 {opts.width}x{opts.height} "
           f"d{opts.max_depth} frame: {len(calls)} launches over "
           f"{sum(c[0].shape[0] for c in calls)} lanes: kernel {ms:.4f} ms; "
-          f"the from-state composition they replace {state_ms:.4f} ms, the "
-          f"plain composition {plain_ms:.3f} ms; {ops:.6g} ops, {nbytes:.6g} "
-          f"bytes ({listed} listed triangles, {per_launch} B of tables per "
+          f"the plain composition {plain_ms:.3f} ms; {ops:.6g} ops, "
+          f"{nbytes:.6g} bytes ({listed} listed triangles, {per_launch} B of tables per "
           f"launch) → bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound",
           flush=True)
     return err, ms, plain_ms, b_ms, b_by
@@ -1283,11 +1273,10 @@ def compare_cross(name, ref, got):
 def brute_phase(scene, cam, opts, grid_tracer, device):
     """K3 and K4 vs their plain versions on config4's ray sets at 1920×1080
     (walk_ray_sets, with their masks, and primary-occl6), against each other
-    and against the walk kernel → {kind: {mode: kernel vs plain: max |Δt|
+    and against the grid walk → {kind: {mode: kernel vs plain: max |Δt|
     on hits (nearest), lanes that differ (any-hit)}}."""
     import torch
 
-    from raytracer_tpu_torch.accel.grid import walk_init
     from raytracer_tpu_torch.ops import walk as W
     from raytracer_tpu_torch.ops.mat_trace import MatTracer
     from raytracer_tpu_torch.ops.pallas_trace import PallasTracer
@@ -1302,9 +1291,7 @@ def brute_phase(scene, cam, opts, grid_tracer, device):
     grid, table = grid_tracer._grid, grid_tracer._table
     for name, o, d, mx, act in sets:
         o, d = o.contiguous(), d.contiguous()
-        walk = W.grid_walk_cuda(grid, table, o, d,
-                                walk_init(grid, o, d, opts.t_min, act),
-                                opts.t_min, mx)
+        walk = W.grid_walk(grid, table, o, d, opts.t_min, mx, act)
         lanes = o.shape[0] if act is None else int(act.sum())
         got = {}
         for kind, tr in tracers.items():
@@ -1336,7 +1323,7 @@ def brute_phase(scene, cam, opts, grid_tracer, device):
         if mx is None:  # the three tracers against each other, hits' ids
             tw, iw = walk
             walk_hits = (tw, torch.where(torch.isfinite(tw), iw, 0))
-            compare_walks(f"{name} tri kernel vs walk kernel", walk_hits,
+            compare_walks(f"{name} tri kernel vs grid walk", walk_hits,
                           got["tri"])
             fin = tracers["mat"]._finalize(o, d, *got["mat"], opts.t_min)
             compare_cross(f"{name} mat (finalized) vs tri", got["tri"],
@@ -1347,7 +1334,7 @@ def brute_phase(scene, cam, opts, grid_tracer, device):
             occ_w = walk[0] < mx
             d_tri = int((got["tri"] != occ_w).sum())
             d_mat = int((got["mat"] != occ_w).sum())
-            msg = (f"{name} occlusion vs walk kernel: tri {d_tri}, mat "
+            msg = (f"{name} occlusion vs grid walk: tri {d_tri}, mat "
                    f"{d_mat} differ of {o.shape[0]}")
             print(msg, flush=True)
             assert d_tri == 0 and d_mat <= CROSS_MAX * o.shape[0], msg
@@ -2389,15 +2376,14 @@ def bvh_work(calls) -> dict:
 def exact_grid_phase(scene, cam, opts, box, box_img, device):
     """C4: the grid built with exact binning (`GridTracer.build(...,
     exact=True)`) on config4: cell occupancy and build time both ways, K5
-    vs its plain version on the exact grid (bit for bit) over config4's ray
-    sets and the kernel's time over the four sets both ways, and the 1080p
-    d4 frame against the box-binned grid's (the goldens' standard).
+    vs the plain composition on the exact grid (bit for bit) over config4's
+    ray sets and K5's time over the four sets both ways, and the 1080p d4
+    frame against the box-binned grid's (the goldens' standard).
     → K5 launches of the exact grid's frame."""
     import numpy as np
     import torch
 
-    from raytracer_tpu_torch.accel.grid import GridTracer, walk_init
-    from raytracer_tpu_torch.ops import walk as W
+    from raytracer_tpu_torch.accel.grid import GridTracer
     from raytracer_tpu_torch.renderer import render_banded
 
     print(card_line(), flush=True)
@@ -2421,28 +2407,20 @@ def exact_grid_phase(scene, cam, opts, box, box_img, device):
     sets = walk_ray_sets(scene, cam, opts, box, device)
     sets.append(("primary-occl6", sets[0][1], sets[0][2],
                  torch.full_like(sets[0][1][:, 0], 6.0), None))
-    g, table = exact_tr._grid, exact_tr._table
     for name, o, d, mx, act in sets:
-        o, d = o.contiguous(), d.contiguous()
-        st = walk_init(g, o, d, opts.t_min, act)
-        got = W.grid_walk_cuda(g, table, o, d, st, opts.t_min, mx)
-        ref = W.grid_walk_reference(g, table, o, d, opts.t_min, mx, act)
+        got = grid_search(exact_tr, o, d, opts.t_min, mx, act)
+        want = composed_search(exact_tr, o, d, opts.t_min, mx, act)
         torch.cuda.synchronize()
-        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        print(f"exact grid {name}: K5 bit-equal to the plain walk: {same}",
-              flush=True)
+        same = search_equal(got, want)
+        print(f"exact grid {name}: K5 bit-equal to the plain composition: "
+              f"{same}", flush=True)
         assert same, name
     for exact, (tr, _) in built.items():
-        pieces = []
-        for name, o, d, mx, act in sets[:-1]:
-            o, d = o.contiguous(), d.contiguous()
-            pieces.append((o, d, mx, walk_init(tr._grid, o, d, opts.t_min,
-                                               act)))
-        ms = cuda_ms(lambda: [W.grid_walk_cuda(tr._grid, tr._table, o, d, st,
-                                               opts.t_min, mx)
-                              for o, d, mx, st in pieces], 5)
+        ms = cuda_ms(lambda: [grid_search(tr, o, d, opts.t_min, mx, act)
+                              for _, o, d, mx, act in sets[:-1]], 5)
         print(f"K5 over config4's four 1080p walk sets, "
-              f"{'exact' if exact else 'box'} grid: {ms:.4f} ms", flush=True)
+              f"{'exact' if exact else 'box'} grid: {ms:.4f} ms (the "
+              f"searches whole: dense tests, walk, merge)", flush=True)
 
     k5_reset()
     img, _ = render_banded(scene, cam, opts, device=device, tracer=exact_tr)
@@ -2549,11 +2527,11 @@ def ms_in_turns(fns, n=FRAMES, reps=5):
 
 def cull_vs_walk(name, args, grid):
     """One recorded sweep call: the kernel against its plain version (bit
-    for bit) and against K5 on the same rays and active lanes (the hits,
-    or the occlusion bits) → (max |Δt| kernel vs plain, K5 args)."""
+    for bit) and against the grid walk on the same rays and active lanes
+    (the hits, or the occlusion bits) → (max |Δt| kernel vs plain, the
+    grid tracer's search of the same call: `grid_search`'s args)."""
     import torch
 
-    from raytracer_tpu_torch.accel.grid import walk_init
     from raytracer_tpu_torch.ops import cull_sweep as CS
     from raytracer_tpu_torch.ops import walk as W
 
@@ -2561,8 +2539,7 @@ def cull_vs_walk(name, args, grid):
     got = CS.cull_sweep_cuda(*args)
     want = CS.cull_sweep_plain(*args)
     mx = mx[0] if mx else None
-    state = walk_init(grid._grid, *rays, t_min, act)
-    walk = W.grid_walk_cuda(grid._grid, grid._table, *rays, state, t_min, mx)
+    walk = W.grid_walk(grid._grid, grid._table, *rays, t_min, mx, act)
     torch.cuda.synchronize()
     n_live = int(act.sum())
     if mx is not None:
@@ -2570,7 +2547,7 @@ def cull_vs_walk(name, args, grid):
         k5_diff = int((got != (walk[0] < mx)).sum())
         msg = (f"cull {name}: {rays[0].shape[0]} lanes in {ids.shape[0]} "
                f"lists, {n_live} live, {int(got.sum())} occluded; kernel "
-               f"bit-equal to plain: {same}; occlusion bits off K5's: "
+               f"bit-equal to plain: {same}; occlusion bits off the walk's: "
                f"{k5_diff}")
         err = 0.0
     else:
@@ -2584,10 +2561,10 @@ def cull_vs_walk(name, args, grid):
         msg = (f"cull {name}: {rays[0].shape[0]} lanes in {ids.shape[0]} "
                f"lists, {n_live} live, {int(fin.sum())} hits; kernel "
                f"bit-equal to plain: {same}; lanes whose t or hit id is off "
-               f"K5's: {k5_diff}")
+               f"the walk's: {k5_diff}")
     print(msg, flush=True)
     assert same and k5_diff == 0, msg
-    return err, (grid._grid, grid._table, *rays, state, t_min, mx)
+    return err, (grid, *rays, t_min, mx, act)
 
 
 def assert_vg_close(tag, v, g, want_v, want_g):
@@ -2618,7 +2595,8 @@ def cull_counts(reset: bool = False) -> tuple:
 def cull_phase(scene, cam, opts, grid, frame, traced, device):
     """The culled sweep on the main path's scene at config4 1920×1080 d4 in
     32×160 blocks, cap 1024: the audit; the sweep kernel vs its plain
-    version and vs K5 on the hybrid frame's calls, times and bound;
+    version and vs the grid walk on the hybrid frame's calls, times and
+    bound (beside the grid tracer's searches of the same calls);
     `HybridBand` 5 frames in turns with the grid frame (image, rays, two
     runs); `render_partitioned`; the hybrid fwd+bwd step against the grid
     step; the per-call form at 480×270; the overflow drill at 192×108, cap
@@ -2631,7 +2609,6 @@ def cull_phase(scene, cam, opts, grid, frame, traced, device):
                                                 cull_audit, render_partitioned,
                                                 thin_tiles)
     from raytracer_tpu_torch.ops import cull_sweep as CS
-    from raytracer_tpu_torch.ops import walk as W
     from raytracer_tpu_torch.renderer import (render_banded, render_rays,
                                               value_and_grad_bands,
                                               value_and_grad_banded)
@@ -2664,8 +2641,9 @@ def cull_phase(scene, cam, opts, grid, frame, traced, device):
     assert (aud["d0"][thin] <= CULL_CAP).all() and (
         aud["shadow"][thin] <= CULL_CAP).all()
 
-    # 2. the kernel against its plain version and K5, on the calls of the
-    # hybrid frame (the thin tiles' d0 nearest and each light's shadows)
+    # 2. the kernel against its plain version and the grid walk, on the
+    # calls of the hybrid frame (the thin tiles' d0 nearest and each
+    # light's shadows)
     t0 = time.perf_counter()
     band = HybridBand(scene, cam, block, device=device, inner=grid,
                       cap=CULL_CAP)
@@ -2691,7 +2669,7 @@ def cull_phase(scene, cam, opts, grid, frame, traced, device):
     ms = t["device_ms"]
     plain_ms = cuda_ms(lambda: [CS.cull_sweep_plain(*a) for _, a in calls], 1,
                        warmup=False)
-    k5_ms = cuda_ms(lambda: [W.grid_walk_cuda(*a) for a in walks], 5)
+    k5_ms = cuda_ms(lambda: [grid_search(*a) for a in walks], 5)
     work = cull_work(calls)
     b_ms, b_by = bound_ms(work["ops"], work["bytes"])
     # the hybrid's gate, part 1: the whole search call, culling included,
@@ -2711,7 +2689,8 @@ def cull_phase(scene, cam, opts, grid, frame, traced, device):
           f"{b_ms:.4f} ms ({b_by}), the call at {b_ms / ms:.1%} of bound; "
           f"tests / warp_tests {work['tests'] / work['warp_lanes']:.4f} in "
           f"lane order, {work['tests'] / work['warp_live']:.4f} in live-list "
-          f"order; K5 on the same rays {k5_ms:.4f} ms; the d0 nearest call "
+          f"order; the grid tracer's searches (K5) of the same calls "
+          f"{k5_ms:.4f} ms; the d0 nearest call "
           f"whole (segments, lists, kernel, spheres/planes) {call_ms:.4f} ms "
           f"({fmt(call_all)}) in turns with the grid tracer's "
           f"{grid_call_ms:.4f} ms ({fmt(grid_call_all)}) (CUDA events, "
@@ -2875,7 +2854,7 @@ MD_LOSS_RTOL, MD_TABLE_TOL = 1e-5, 1e-4
 OV_LOSS_RTOL, OV_GRAD_RTOL, OV_GRAD_ATOL, OV_SINGLE_RTOL = 1e-6, 1e-4, 1e-7, \
     1e-5
 # kernels of the multi-device path → their launch counters
-MD_KERNELS = {"grid_walk": ("raytracer_tpu_torch.ops.walk", "search_launches"),
+MD_KERNELS = {"grid_walk": ("raytracer_tpu_torch.ops.walk", "launches"),
               "bvh_walk": ("raytracer_tpu_torch.ops.bvh_walk", "launches"),
               "fused_whitted_live_plan": ("raytracer_tpu_torch.ops.fused",
                                           "live_plan_launches"),
@@ -3726,8 +3705,8 @@ def main() -> int:
     _phase("raygen on the card")
     raygen_check(device)
 
-    _phase("K5's fused search vs the compositions it replaces, the searches "
-           "of the config4 1920x1080 d4 frame")
+    _phase("K5's fused search vs the plain composition it replaces, the "
+           "searches of the config4 1920x1080 d4 frame")
     scene, cam, opts = load_scene_cli("config4")
     t0 = time.perf_counter()
     tracer = build_tracer(scene, "auto", device)

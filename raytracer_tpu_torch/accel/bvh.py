@@ -26,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.types import Meshes, Scene
+from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import trace as trace_ops
 
@@ -389,7 +389,7 @@ def bvh_walk(bvh: BVHData, v0, e1, e2, orig, direc, t_min,
     return best_t, best_i
 
 
-class BVHTracer:
+class BVHTracer(trace_ops.MeshTracer):
     """Tracer: BVH-walked triangles + dense spheres/planes, on one device.
 
     Built on host from a concrete scene (`BVHTracer.build(scene, device)`).
@@ -400,9 +400,7 @@ class BVHTracer:
     def __init__(self, scene: Scene, bvh: BVHData, device):
         from raytracer_tpu_torch.ops.bvh_walk import pack_bvh_table
 
-        self.device = torch.device(device)
-        # spheres and planes stay in the dense search; triangles are walked
-        self._base = scene.replace(meshes=Meshes.empty()).to(self.device)
+        super().__init__(scene, device)
         self._bvh = bvh
         v0, e1, e2 = scene.meshes.to(self.device).tri_soa()
         self._table = pack_bvh_table(bvh, v0, e1, e2)
@@ -415,22 +413,9 @@ class BVHTracer:
                         sah=sah, device=device)
         return BVHTracer(scene, bvh, device)
 
-    @torch.no_grad()
-    def nearest(self, orig, direc, t_min, tri_chunk, active=None):
+    def _triangles(self, orig, direc, t_min, max_t, active):
         from raytracer_tpu_torch.ops.bvh_walk import bvh_trace
 
-        base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
         tb, ib = bvh_trace(self._bvh, self._table, orig, direc, t_min,
-                           active=active)
-        # strict <: a triangle wins only strictly before the base hit
-        return trace_ops.merge_triangles(base, tb, ib)
-
-    @torch.no_grad()
-    def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
-        from raytracer_tpu_torch.ops.bvh_walk import bvh_trace
-
-        occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
-                                 tri_chunk)
-        tb, _ = bvh_trace(self._bvh, self._table, orig, direc, t_min,
-                          occlusion_max_t=max_t, active=active)
-        return occ | (tb < max_t)
+                           occlusion_max_t=max_t, active=active)
+        return (tb, ib) if max_t is None else tb < max_t

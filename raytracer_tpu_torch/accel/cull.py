@@ -41,7 +41,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.types import Meshes
 from raytracer_tpu_torch.ops import cull_sweep as CS
 from raytracer_tpu_torch.ops import trace as trace_ops
 from raytracer_tpu_torch.ops.safemath import clamp01, dot
@@ -160,7 +159,7 @@ def tile_ids(cd: CullData, seg_lo, seg_hi, inside):
     return ids.to(torch.int32), cs[:, -1].contiguous()
 
 
-class CullTracer:
+class CullTracer(trace_ops.MeshTracer):
     """Tracer: the culled sweep for the calls of `cull_depths`, the inner
     tracer (the grid walk by default) for the others, on one device.
 
@@ -174,13 +173,12 @@ class CullTracer:
 
     def __init__(self, scene, device, inner=None, cap: int = CAP,
                  cull_depths=(0,), tile: int | None = None):
-        self.device = torch.device(device)
+        super().__init__(scene, device)
         if inner is None:
             from raytracer_tpu_torch.accel.grid import GridTracer
 
             inner = GridTracer.build(scene, self.device)
         self._inner = inner
-        self._base = scene.replace(meshes=Meshes.empty()).to(self.device)
         self._cd = build_cull(scene, self.device, cap)
         self._depths = tuple(cull_depths)
         self._tile = tile
@@ -196,7 +194,7 @@ class CullTracer:
         obj._n_nearest = 0
         return obj
 
-    def _sweep(self, orig, direc, t_min, max_t, active):
+    def _triangles(self, orig, direc, t_min, max_t, active):
         n = orig.shape[0]
         tile = n if self._tile is None else self._tile
         if n % tile:
@@ -222,10 +220,7 @@ class CullTracer:
         if depth not in self._depths:
             return self._inner.nearest(orig, direc, t_min, tri_chunk,
                                        active=active)
-        base = trace_ops.nearest_hit(self._base, orig, direc, t_min,
-                                     tri_chunk)
-        tb, ib = self._sweep(orig, direc, t_min, None, active)
-        return trace_ops.merge_triangles(base, tb, ib)
+        return super().nearest(orig, direc, t_min, tri_chunk, active)
 
     @torch.no_grad()
     def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
@@ -233,9 +228,7 @@ class CullTracer:
         if depth not in self._depths:
             return self._inner.occluded(orig, direc, max_t, t_min, tri_chunk,
                                         active=active)
-        occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
-                                 tri_chunk)
-        return occ | self._sweep(orig, direc, t_min, max_t, active)
+        return super().occluded(orig, direc, max_t, t_min, tri_chunk, active)
 
 
 # ---------------------------------------------------------------------------

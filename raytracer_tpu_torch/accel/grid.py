@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.types import Meshes, Scene
+from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import trace as trace_ops
 
@@ -205,7 +205,7 @@ def walk_init(grid: GridData, orig, direc, t_min, active=None):
             tdelta.contiguous(), inside.contiguous())
 
 
-class GridTracer:
+class GridTracer(trace_ops.MeshTracer):
     """Tracer: grid-walked triangles + dense spheres/planes, on one device.
 
     Built on host from a concrete scene (`GridTracer.build(scene, device)`).
@@ -214,9 +214,7 @@ class GridTracer:
     def __init__(self, scene: Scene, grid: GridData, device):
         from raytracer_tpu_torch.ops.walk import pack_cell_table
 
-        self.device = torch.device(device)
-        # spheres and planes stay in the dense search; triangles are walked
-        self._base = scene.replace(meshes=Meshes.empty()).to(self.device)
+        super().__init__(scene, device)
         self._grid = grid
         self._table = pack_cell_table(grid)
 
@@ -228,32 +226,30 @@ class GridTracer:
                           device=device, exact=exact)
         return GridTracer(scene, grid, device)
 
+    def _triangles(self, orig, direc, t_min, max_t, active):
+        from raytracer_tpu_torch.ops.walk import grid_walk
+
+        tb, ib = grid_walk(self._grid, self._table, orig, direc, t_min,
+                           occlusion_max_t=max_t, active=active)
+        return (tb, ib) if max_t is None else tb < max_t
+
     # On the card each search is one launch of the walk kernel's fused
     # entry (`ops/walk.grid_search_cuda`); elsewhere the composition it is
-    # held to bit for bit: the dense search over spheres and planes, the
-    # walk, and the merge.
+    # held to bit for bit (MeshTracer's, with the plain walk).
     @torch.no_grad()
     def nearest(self, orig, direc, t_min, tri_chunk, active=None):
-        from raytracer_tpu_torch.ops.walk import grid_search_cuda, grid_walk
+        from raytracer_tpu_torch.ops.walk import grid_search_cuda
 
         if orig.device.type == "cuda":
             return grid_search_cuda(self._base, self._grid, self._table, orig,
                                     direc, t_min, active=active)
-        # spheres + planes via the dense search on a mesh-less scene
-        base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
-        tb, ib = grid_walk(self._grid, self._table, orig, direc, t_min,
-                           active=active)
-        return trace_ops.merge_triangles(base, tb, ib)
+        return super().nearest(orig, direc, t_min, tri_chunk, active)
 
     @torch.no_grad()
     def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
-        from raytracer_tpu_torch.ops.walk import grid_search_cuda, grid_walk
+        from raytracer_tpu_torch.ops.walk import grid_search_cuda
 
         if orig.device.type == "cuda":
             return grid_search_cuda(self._base, self._grid, self._table, orig,
                                     direc, t_min, max_t, active)
-        occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
-                                 tri_chunk)
-        tb, _ = grid_walk(self._grid, self._table, orig, direc, t_min,
-                          occlusion_max_t=max_t, active=active)
-        return occ | (tb < max_t)
+        return super().occluded(orig, direc, max_t, t_min, tri_chunk, active)

@@ -32,39 +32,34 @@
 // winner, and every t comes from the same expressions as
 // geometry.triangle_tuv: the kernel equals the plain walk bit for bit.
 //
-// Two entries share the one kernel template (the entry is its compile-time
-// argument) and the one walk loop, walk_lane:
-//   - rt_grid_walk, from a state: the walk_init state of accel/grid.py,
-//     written by torch ops as six buffers, read back here;
-//   - rt_grid_search, the fused search: one launch does all of a
-//     GridTracer.nearest or GridTracer.occluded call. Per lane, in
-//     registers:
-//       1. the dense sphere and plane tests over the tracer's tables (read
-//          through pointers at each call), on every lane whatever `active`
-//          says: ops/trace.dense_nearest / dense_occluded;
-//       2. on active lanes, the overflow seed, then the slab entry, the
-//          first cell, tmax, step and tdelta of accel/grid.walk_init;
-//       3. the walk, on lanes that are active and inside the grid;
-//       4. the merge: nearest writes the Hit (kind, idx i32; t f32),
-//          occlusion the bool occ | (t_walk < max_t).
-//     A lane the dense tests already find occluded skips 2-3: its bit is
-//     set whatever the walk finds.
-//   Its rules, each that of the torch composition it replaces, bit for bit:
-//     ties go to the first index of a group (torch.min), then spheres <
-//     planes < triangles (strict < at each merge), triangles by (t, id);
-//     geometry.sphere_t keeps its radius > 0 term, and its
-//     torch.minimum / maximum propagate NaN (nan_min / nan_max here; fminf
-//     would drop one), as do walk_init's amax / amin and clamp; a hit
-//     distance is never NaN (a failed comparison misses), so the minimum
-//     over a group needs no NaN rule; the reciprocal is 1e12 where
-//     |d| <= 1e-12, and nan_to_num zeroes a NaN or infinite cell
-//     coordinate. The composition it equals is torch's on the card, whose
-//     sqrt and division round correctly as sqrtf and / do here; the CPU's
-//     sqrt (MKL) can be an ulp off.
-//     The fused launch costs the card little beside the walk it holds: the
-//     dense tests read 24-29 bytes a lane and write 1-12 (config4 1080p d4
-//     on the H100: 1.46 device ms a frame against 1.36 for the walk from a
-//     state, with ~8.9 ms of torch ops and ~900 launches a frame gone).
+// One entry, rt_grid_search, the fused search: one launch does all of a
+// GridTracer.nearest or GridTracer.occluded call. Per lane, in registers:
+//   1. the dense sphere and plane tests over the tracer's tables (read
+//      through pointers at each call), on every lane whatever `active`
+//      says: ops/trace.dense_nearest / dense_occluded;
+//   2. on active lanes, the overflow seed, then the slab entry, the first
+//      cell, tmax, step and tdelta of accel/grid.walk_init;
+//   3. the walk (walk_lane), on lanes that are active and inside the grid;
+//   4. the merge: nearest writes the Hit (kind, idx i32; t f32), occlusion
+//      the bool occ | (t_walk < max_t).
+// A lane the dense tests already find occluded skips 2-3: its bit is set
+// whatever the walk finds.
+// Its rules, each that of the torch composition it replaces, bit for bit:
+//   ties go to the first index of a group (torch.min), then spheres <
+//   planes < triangles (strict < at each merge), triangles by (t, id);
+//   geometry.sphere_t keeps its radius > 0 term, and its
+//   torch.minimum / maximum propagate NaN (nan_min / nan_max here; fminf
+//   would drop one), as do walk_init's amax / amin and clamp; a hit
+//   distance is never NaN (a failed comparison misses), so the minimum
+//   over a group needs no NaN rule; the reciprocal is 1e12 where
+//   |d| <= 1e-12, and nan_to_num zeroes a NaN or infinite cell
+//   coordinate. The composition it equals is torch's on the card, whose
+//   sqrt and division round correctly as sqrtf and / do here; the CPU's
+//   sqrt (MKL) can be an ulp off.
+// The dense tests cost the card little beside the walk: they read 24-29
+// bytes a lane and write 1-12 (config4 1080p d4 on the H100: 1.46 device
+// ms a frame for the whole search, against 1.36 for the walk alone before
+// they joined it).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -Xcompiler -fPIC -c, then one -shared link of all
@@ -96,24 +91,16 @@ struct Lane {
   float tdx, tdy, tdz;
 };
 
-// Every input and output of either entry; an entry leaves the other's null.
+// Every input and output of the search.
 struct WalkArgs {
   const float* orig;    // [N,3]
   const float* dir;     // [N,3]
-  const uint8_t* act;   // [N] bool; null in the fused entry = all active
+  const uint8_t* act;   // [N] bool; null = all active
   const float* max_t;   // [N] (occlusion only)
   const int2* cells;    // [ncells] offset, count
   const float4* slots;  // [n_slots, 3]
   int n, nx, ny, nz, max_iters, occlusion;
   float t_min;
-  // from a state (rt_grid_walk)
-  const int* cell0;       // [N,3]
-  const float* tmax0;     // [N,3]
-  const int* step0;       // [N,3]
-  const float* tdelta0;   // [N,3]
-  const float* best_t0;   // [N]
-  const int* best_i0;     // [N]
-  // fused (rt_grid_search)
   const float* sph_c;     // [ns,3]
   const float* sph_r;     // [ns]
   const float* pl_p;      // [np,3]
@@ -127,9 +114,7 @@ struct WalkArgs {
   const float* ov_e2;     // [n_ov,3]
   const int* ov_ids;      // [n_ov]
   int n_ov, n_tris;
-  // outputs: t and idx (both entries; idx is the triangle id of a walk
-  // from a state and the Hit's idx of a fused nearest), the fused
-  // nearest's kind, the fused occlusion's bool
+  // outputs: nearest's Hit (t, idx, kind), occlusion's bool
   float* t_out;
   int* i_out;
   int* kind_out;
@@ -262,7 +247,7 @@ __device__ __forceinline__ void axis_entry(float o, float d, float inv,
   tmax = fabsf(d) > 1e-12f ? (nb - o) * inv : CUDART_INF_F;
 }
 
-// The fused search on lane r (rt_grid_search).
+// The search on lane r.
 __device__ __forceinline__ void search_lane(const WalkArgs& a, int r) {
   Lane l;
   l.ox = a.orig[3 * r];
@@ -401,60 +386,33 @@ __device__ __forceinline__ void search_lane(const WalkArgs& a, int r) {
   a.t_out[r] = t_best;
 }
 
-// kFused: the fused search (rt_grid_search); else the walk from a
-// walk_init state (rt_grid_walk).
-template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
 grid_walk_kernel(const WalkArgs a) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= a.n) return;
-  if (kFused) {
-    search_lane(a, r);
-    return;
-  }
-  float bt = a.best_t0[r];
-  int bi = a.best_i0[r];
-  if (a.act[r]) {
-    Lane l;
-    l.ox = a.orig[3 * r];
-    l.oy = a.orig[3 * r + 1];
-    l.oz = a.orig[3 * r + 2];
-    l.dx = a.dir[3 * r];
-    l.dy = a.dir[3 * r + 1];
-    l.dz = a.dir[3 * r + 2];
-    l.cx = a.cell0[3 * r];
-    l.cy = a.cell0[3 * r + 1];
-    l.cz = a.cell0[3 * r + 2];
-    l.tmx = a.tmax0[3 * r];
-    l.tmy = a.tmax0[3 * r + 1];
-    l.tmz = a.tmax0[3 * r + 2];
-    l.sx = a.step0[3 * r];
-    l.sy = a.step0[3 * r + 1];
-    l.sz = a.step0[3 * r + 2];
-    l.tdx = a.tdelta0[3 * r];
-    l.tdy = a.tdelta0[3 * r + 1];
-    l.tdz = a.tdelta0[3 * r + 2];
-    walk_lane(l, a.occlusion ? a.max_t[r] : 0.0f, a.cells, a.slots, a.nx,
-              a.ny, a.nz, a.t_min, a.max_iters, a.occlusion, bt, bi);
-  }
-  a.t_out[r] = bt;
-  a.i_out[r] = bi;
+  if (r < a.n) search_lane(a, r);
 }
 
-template <bool kFused>
-int launch(const WalkArgs& a, void* stream) {
-  if (a.n <= 0) return 0;
-  const int blocks = (a.n + kThreads - 1) / kThreads;
-  grid_walk_kernel<kFused>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
+}  // namespace
 
-// The fields both entries take.
-WalkArgs walk_args(const void* orig, const void* dir, const void* act,
-                   const void* max_t, const void* cells, const void* slots,
-                   int n, int nx, int ny, int nz, float t_min, int max_iters,
-                   int occlusion, void* t_out, void* i_out) {
+// Plain C entry for ctypes: the search of one GridTracer call. `cells`:
+// [ncells, 2] i32 (offset, count) and `slots`: [n_slots, 12] f32, the table
+// of ops/walk.pack_cell_table. `act` may be null (every lane active).
+// Nearest (occlusion = 0) → kind_out, i_out [N] i32 and t_out [N] f32;
+// occlusion (max_t given) → occ_out [N] bool. The spheres: sph_c [ns,3],
+// sph_r [ns]; the planes: pl_p, pl_n [np,3]; the grid's box: bmin,
+// cell_size, inv_cell [3]; its overflow list: ov_v0, ov_e1, ov_e2 [n_ov,3],
+// ov_ids [n_ov] i32. Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() (0 on success).
+extern "C" int rt_grid_search(
+    const void* orig, const void* dir, const void* act, const void* max_t,
+    const void* cells, const void* slots, const void* sph_c,
+    const void* sph_r, const void* pl_p, const void* pl_n, const void* bmin,
+    const void* cell_size, const void* inv_cell, const void* ov_v0,
+    const void* ov_e1, const void* ov_e2, const void* ov_ids, int n, int nx,
+    int ny, int nz, int ns, int np, int n_ov, int n_tris, float t_min,
+    int max_iters, int occlusion, void* kind_out, void* i_out, void* t_out,
+    void* occ_out, void* stream) {
+  if (n <= 0) return 0;
   WalkArgs a = {};
   a.orig = static_cast<const float*>(orig);
   a.dir = static_cast<const float*>(dir);
@@ -469,56 +427,6 @@ WalkArgs walk_args(const void* orig, const void* dir, const void* act,
   a.max_iters = max_iters;
   a.occlusion = occlusion;
   a.t_min = t_min;
-  a.t_out = static_cast<float*>(t_out);
-  a.i_out = static_cast<int*>(i_out);
-  return a;
-}
-
-}  // namespace
-
-// Plain C entries for ctypes. `cells`: [ncells, 2] i32 (offset, count) and
-// `slots`: [n_slots, 12] f32, the table of ops/walk.pack_cell_table. Each
-// launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 on success).
-
-// The walk from a walk_init state → t_out [N] f32, i_out [N] i32.
-extern "C" int rt_grid_walk(const void* orig, const void* dir,
-                            const void* cell0, const void* tmax0,
-                            const void* step0, const void* tdelta0,
-                            const void* act0, const void* best_t0,
-                            const void* best_i0, const void* max_t,
-                            const void* cells, const void* slots, int n,
-                            int nx, int ny, int nz, float t_min, int max_iters,
-                            int occlusion, void* t_out, void* i_out,
-                            void* stream) {
-  WalkArgs a = walk_args(orig, dir, act0, max_t, cells, slots, n, nx, ny, nz,
-                         t_min, max_iters, occlusion, t_out, i_out);
-  a.cell0 = static_cast<const int*>(cell0);
-  a.tmax0 = static_cast<const float*>(tmax0);
-  a.step0 = static_cast<const int*>(step0);
-  a.tdelta0 = static_cast<const float*>(tdelta0);
-  a.best_t0 = static_cast<const float*>(best_t0);
-  a.best_i0 = static_cast<const int*>(best_i0);
-  return launch<false>(a, stream);
-}
-
-// The fused search of one GridTracer call. `act` may be null (every lane
-// active). Nearest (occlusion = 0) → kind_out, i_out [N] i32 and t_out [N]
-// f32; occlusion (max_t given) → occ_out [N] bool. The spheres: sph_c
-// [ns,3], sph_r [ns]; the planes: pl_p, pl_n [np,3]; the grid's box: bmin,
-// cell_size, inv_cell [3]; its overflow list: ov_v0, ov_e1, ov_e2 [n_ov,3],
-// ov_ids [n_ov] i32.
-extern "C" int rt_grid_search(
-    const void* orig, const void* dir, const void* act, const void* max_t,
-    const void* cells, const void* slots, const void* sph_c,
-    const void* sph_r, const void* pl_p, const void* pl_n, const void* bmin,
-    const void* cell_size, const void* inv_cell, const void* ov_v0,
-    const void* ov_e1, const void* ov_e2, const void* ov_ids, int n, int nx,
-    int ny, int nz, int ns, int np, int n_ov, int n_tris, float t_min,
-    int max_iters, int occlusion, void* kind_out, void* i_out, void* t_out,
-    void* occ_out, void* stream) {
-  WalkArgs a = walk_args(orig, dir, act, max_t, cells, slots, n, nx, ny, nz,
-                         t_min, max_iters, occlusion, t_out, i_out);
   a.sph_c = static_cast<const float*>(sph_c);
   a.sph_r = static_cast<const float*>(sph_r);
   a.pl_p = static_cast<const float*>(pl_p);
@@ -534,7 +442,12 @@ extern "C" int rt_grid_search(
   a.ov_ids = static_cast<const int*>(ov_ids);
   a.n_ov = n_ov;
   a.n_tris = n_tris;
+  a.t_out = static_cast<float*>(t_out);
+  a.i_out = static_cast<int*>(i_out);
   a.kind_out = static_cast<int*>(kind_out);
   a.occ_out = static_cast<uint8_t*>(occ_out);
-  return launch<true>(a, stream);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  grid_walk_kernel<<<blocks, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

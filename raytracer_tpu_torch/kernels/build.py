@@ -108,12 +108,6 @@ def load_library() -> ctypes.CDLL:
             path, _ = build_library()
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rt_grid_walk.restype = i
-        lib.rt_grid_walk.argtypes = (
-            [p] * 12                      # orig … cells, slots
-            + [i] * 4                     # n, nx, ny, nz
-            + [ctypes.c_float, i, i]      # t_min, max_iters, occlusion
-            + [p, p, p])                  # t_out, i_out, stream
         lib.rt_grid_search.restype = i
         lib.rt_grid_search.argtypes = (
             [p] * 17                      # orig, dir, act, max_t, cells,

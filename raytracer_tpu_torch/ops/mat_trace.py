@@ -47,7 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core.types import Meshes, Scene
+from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.kernels.build import check_arg, launch_search
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import trace as trace_ops
@@ -333,7 +333,7 @@ def mat_occluded_plain(feats, max_t, weights, t_min, bt: int = BT,
     return occ
 
 
-class MatTracer:
+class MatTracer(trace_ops.MeshTracer):
     """Tracer: the linear-expansion triangle sweep (the K4 kernels on the
     card) + dense spheres/planes, on one device.
 
@@ -344,8 +344,7 @@ class MatTracer:
     """
 
     def __init__(self, scene: Scene, device):
-        self.device = torch.device(device)
-        self._base = scene.replace(meshes=Meshes.empty()).to(self.device)
+        super().__init__(scene, device)
         v0, e1, e2 = (np.asarray(a, np.float32)
                       for a in scene.meshes.tri_soa())
         w, c = build_tri_weights(v0, e1, e2)
@@ -367,18 +366,10 @@ class MatTracer:
                                      t_min)
         return torch.where(hit & torch.isfinite(te), te, INF)
 
-    @torch.no_grad()
-    def nearest(self, orig, direc, t_min, tri_chunk, active=None):
-        base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
+    def _triangles(self, orig, direc, t_min, max_t, active):
         feats = ray_features(orig, direc, self._center)
+        if max_t is not None:
+            return mat_occluded(feats, max_t, self._w, t_min, BT, active,
+                                self._table)
         tb, ib = mat_nearest(feats, self._w, t_min, BT, active, self._table)
-        tb = self._finalize(orig, direc, tb, ib, t_min)
-        return trace_ops.merge_triangles(base, tb, ib)
-
-    @torch.no_grad()
-    def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
-        occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
-                                 tri_chunk)
-        feats = ray_features(orig, direc, self._center)
-        return occ | mat_occluded(feats, max_t, self._w, t_min, BT, active,
-                                  self._table)
+        return self._finalize(orig, direc, tb, ib, t_min), ib

@@ -32,7 +32,7 @@ device.
 
 import torch
 
-from raytracer_tpu_torch.core.types import Meshes, Scene
+from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.kernels.build import check_arg, launch_search
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops import trace as trace_ops
@@ -267,24 +267,15 @@ def count_tests(stats, tests, hit, n_tris: int):
             torch.where(hit, tests, n_tris).sum())
 
 
-class PallasTracer:
+class PallasTracer(trace_ops.MeshTracer):
     """Tracer: brute-force triangles (the K3 kernels on the card) + dense
     spheres/planes, on one device. The name is the reference's."""
 
     def __init__(self, scene: Scene, device):
-        self.device = torch.device(device)
-        # spheres and planes stay in the dense search
-        self._base = scene.replace(meshes=Meshes.empty()).to(self.device)
+        super().__init__(scene, device)
         self._tri = pack_tris(*scene.meshes.tri_soa()).to(self.device)
 
-    @torch.no_grad()
-    def nearest(self, orig, direc, t_min, tri_chunk, active=None):
-        base = trace_ops.nearest_hit(self._base, orig, direc, t_min, tri_chunk)
-        tb, ib = tri_nearest(orig, direc, self._tri, t_min, active)
-        return trace_ops.merge_triangles(base, tb, ib)
-
-    @torch.no_grad()
-    def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
-        occ = trace_ops.occluded(self._base, orig, direc, max_t, t_min,
-                                 tri_chunk)
-        return occ | tri_occluded(orig, direc, max_t, self._tri, t_min, active)
+    def _triangles(self, orig, direc, t_min, max_t, active):
+        if max_t is None:
+            return tri_nearest(orig, direc, self._tri, t_min, active)
+        return tri_occluded(orig, direc, max_t, self._tri, t_min, active)

@@ -14,7 +14,8 @@ import dataclasses
 import torch
 
 from raytracer_tpu_torch.core.types import (KIND_NONE, KIND_PLANE,
-                                            KIND_SPHERE, KIND_TRIANGLE, Scene)
+                                            KIND_SPHERE, KIND_TRIANGLE,
+                                            Meshes, Scene)
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops.dgather import pgather, tselect
 from raytracer_tpu_torch.ops.safemath import cross, dot, normalize, safe_div
@@ -150,6 +151,34 @@ def occluded(scene: Scene, orig, direc, max_t, t_min: float,
                                  tri_chunk)
     return dense_occluded(orig, direc, max_t, t_min, sp.center, sp.radius,
                           pl.point, pl.normal, tris)
+
+
+class MeshTracer:
+    """What every mesh tracer shares: spheres and planes go through the
+    dense search of `_base`, the scene without its mesh, on the tracer's
+    `device`; then the subclass's triangle search (`_triangles`); then the
+    merge, strict <, so exact-t ties go to spheres, then planes."""
+
+    def __init__(self, scene: Scene, device):
+        self.device = torch.device(device)
+        self._base = scene.replace(meshes=Meshes.empty()).to(self.device)
+
+    def _triangles(self, orig, direc, t_min, max_t, active):
+        """The triangle search on the `active` lanes (None: all). Nearest
+        (`max_t` None) → (best_t [N] f32, best_i [N] i32), +inf where none
+        is hit; occlusion → bool [N], a hit with t in (t_min, max_t)."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def nearest(self, orig, direc, t_min, tri_chunk, active=None) -> Hit:
+        base = nearest_hit(self._base, orig, direc, t_min, tri_chunk)
+        tb, ib = self._triangles(orig, direc, t_min, None, active)
+        return merge_triangles(base, tb, ib)
+
+    @torch.no_grad()
+    def occluded(self, orig, direc, max_t, t_min, tri_chunk, active=None):
+        occ = occluded(self._base, orig, direc, max_t, t_min, tri_chunk)
+        return occ | self._triangles(orig, direc, t_min, max_t, active)
 
 
 @dataclasses.dataclass

@@ -1,20 +1,18 @@
 """Grid DDA walk: the CUDA kernel (`csrc/grid_walk.cu`) and its plain torch
-version, behind one dispatcher.
+twin.
 
 Counterpart of `raytracer_tpu/ops/pallas_walk.py` (`pallas_grid_walk`, the
 TPU kernel `_make_walk_kernel`) and of the XLA `accel.grid.grid_walk` at
 fanout 1, skip 0: same traversal and tie semantics, in nearest and in
-occlusion (any-hit) mode. Both versions start from `accel.grid.walk_init`.
+occlusion (any-hit) mode.
 
-`grid_walk` dispatches on the rays' device: a CUDA tensor launches the
-kernel (or raises — there is no fallback), a CPU tensor runs
-`grid_walk_reference`. Hit distances of the two agree to FMA-contraction
-noise (rtol 2e-6) and winner ids match except on knife edges.
-
-`grid_search_cuda` is the kernel's fused entry, what `GridTracer.nearest`
-and `GridTracer.occluded` launch on the card: the dense sphere and plane
-tests, `walk_init`, the walk and the merge in one launch, bit-equal to
-that composition of torch ops (which the CPU runs).
+The kernel has one entry, `grid_search_cuda`: what `GridTracer.nearest`
+and `GridTracer.occluded` launch on the card, the dense sphere and plane
+tests, `walk_init`, the walk and the merge in one launch. Its twin is that
+composition of torch ops, on any device: the dense search, then
+`grid_walk` (`walk_init` and `grid_walk_plain`), then the merge; the
+kernel equals it bit for bit on the card. On the CPU it is what
+`GridTracer` runs.
 """
 
 import dataclasses
@@ -25,12 +23,10 @@ from raytracer_tpu_torch.accel import grid as grid_mod
 from raytracer_tpu_torch.kernels.build import check_arg
 from raytracer_tpu_torch.ops import geometry as geom
 
-# Kernel launches since the last reset, from either entry. Incremented only
-# where the kernel is launched; callers that must show the kernel ran set it
-# to 0 and read it. `search_launches` counts those of the fused entry
-# (`grid_search_cuda`) alone.
+# Kernel launches since the last reset. Incremented only where the kernel
+# is launched; callers that must show the kernel ran set it to 0 and read
+# it.
 launches = 0
-search_launches = 0
 
 # Lanes per chunk of the plain version: bounds its [lanes, C, 10] candidate
 # gather (~5 KB per lane at C = 128).
@@ -91,69 +87,19 @@ def _max_iters(grid):
 @torch.no_grad()
 def grid_walk(grid: grid_mod.GridData, table, orig, direc, t_min,
               occlusion_max_t=None, active=None):
-    """DDA walk over all rays → (best_t [N] f32, best_idx [N] i32).
+    """Plain DDA walk over all rays, from `walk_init` → (best_t [N] f32,
+    best_idx [N] i32), on the CPU or the card.
 
     With `occlusion_max_t` [N] given, lanes park as soon as any hit below
     max_t is found (any-hit mode); best_t < max_t then means occluded.
     `active` [N] bool masks lanes out of the walk: they return t = +inf and
     idx = n_tris.
     """
-    if orig.device.type == "cpu":
-        return grid_walk_reference(grid, table, orig, direc, t_min,
-                                   occlusion_max_t, active)
-    if orig.device.type != "cuda":
+    if orig.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grid_walk runs on cpu or cuda, not {orig.device}")
-    orig = orig.contiguous()
-    direc = direc.contiguous()
     state = grid_mod.walk_init(grid, orig, direc, t_min, active)
-    return grid_walk_cuda(grid, table, orig, direc, state, t_min,
-                          occlusion_max_t)
-
-
-def grid_walk_cuda(grid, table, orig, direc, state, t_min,
-                   occlusion_max_t=None):
-    """Launch the CUDA kernel on the current stream from a `walk_init` state.
-    Raises on any input the kernel does not take and on a refused launch."""
-    global launches
-    from raytracer_tpu_torch.kernels.build import load_library
-
-    best_t, best_i, cell, tmax, step, tdelta, act = state
-    n = orig.shape[0]
-    dev = orig.device
-    if dev.type != "cuda":
-        raise ValueError(f"grid_walk_cuda needs CUDA tensors, got {dev}")
-    if n >= (1 << 31) // 3:
-        raise ValueError(f"too many rays for one launch: {n}")
-    f32, i32 = torch.float32, torch.int32
-    nx, ny, nz = grid.res
-    for name, x, dt, shape in (
-            ("orig", orig, f32, (n, 3)), ("direc", direc, f32, (n, 3)),
-            ("cell", cell, i32, (n, 3)), ("tmax", tmax, f32, (n, 3)),
-            ("step", step, i32, (n, 3)), ("tdelta", tdelta, f32, (n, 3)),
-            ("active", act, torch.bool, (n,)), ("best_t", best_t, f32, (n,)),
-            ("best_i", best_i, i32, (n,)),
-            ("table.cells", table.cells, i32, (nx * ny * nz, 2)),
-            ("table.slots", table.slots, f32, (table.slots.shape[0], 12))):
-        check_arg(name, x, dt, shape, dev)
-    occl = occlusion_max_t is not None
-    if occl:
-        check_arg("occlusion_max_t", occlusion_max_t, f32, (n,), dev)
-    t_out = torch.empty((n,), dtype=f32, device=dev)
-    i_out = torch.empty((n,), dtype=i32, device=dev)
-    if n == 0:
-        return t_out, i_out
-    lib = load_library()
-    rc = lib.rt_grid_walk(
-        orig.data_ptr(), direc.data_ptr(), cell.data_ptr(), tmax.data_ptr(),
-        step.data_ptr(), tdelta.data_ptr(), act.data_ptr(), best_t.data_ptr(),
-        best_i.data_ptr(), occlusion_max_t.data_ptr() if occl else None,
-        table.cells.data_ptr(), table.slots.data_ptr(), n, nx, ny, nz,
-        float(t_min), _max_iters(grid), int(occl), t_out.data_ptr(),
-        i_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"grid walk kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return t_out, i_out
+    return grid_walk_plain(grid, table, orig, direc, state, t_min,
+                           occlusion_max_t)
 
 
 def grid_search_cuda(base, grid, table, orig, direc, t_min, max_t=None,
@@ -170,7 +116,7 @@ def grid_search_cuda(base, grid, table, orig, direc, t_min, max_t=None,
     call to call (the rays, the mask, `max_t`, the sphere and plane tables:
     device, dtype, shape, made contiguous first) and takes the grid and
     its table as GridTracer built them."""
-    global launches, search_launches
+    global launches
     from raytracer_tpu_torch.kernels.build import load_library
     from raytracer_tpu_torch.ops.trace import Hit
 
@@ -225,24 +171,14 @@ def grid_search_cuda(base, grid, table, orig, direc, t_min, max_t=None,
             raise RuntimeError(f"grid search kernel launch failed: CUDA "
                                f"error {rc}")
         launches += 1
-        search_launches += 1
     return occ if occl else Hit(kind=kind, idx=idx, t=t)
-
-
-@torch.no_grad()
-def grid_walk_reference(grid: grid_mod.GridData, table, orig, direc, t_min,
-                        occlusion_max_t=None, active=None):
-    """The plain version of `grid_walk`, on any device."""
-    state = grid_mod.walk_init(grid, orig, direc, t_min, active)
-    return grid_walk_plain(grid, table, orig, direc, state, t_min,
-                           occlusion_max_t)
 
 
 @torch.no_grad()
 def grid_walk_plain(grid: grid_mod.GridData, table, orig, direc, state,
                     t_min, occlusion_max_t=None, stats=None):
-    """Plain torch walk from a `walk_init` state (the twin of
-    `grid_walk_cuda`): the vectorised form of the reference's XLA walk at
+    """Plain torch walk from a `walk_init` state (the walk of the kernel's
+    twin): the vectorised form of the reference's XLA walk at
     fanout 1, skip 0. Each DDA iteration gathers the [lanes, C, 10]
     `table.soa` rows of the still-walking lanes only, in chunks of
     `_REF_CHUNK` lanes.

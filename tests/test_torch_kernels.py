@@ -53,16 +53,6 @@ def assert_walks_agree(t0, i0, t1, i1):
     assert (i0 != i1).mean() <= 0.005, "winner ids differ beyond knife edges"
 
 
-def test_kernel_wrapper_rejects_cpu_tensors():
-    scene, cam, opts = presets.config4_mesh()
-    tracer = GridTracer.build(scene, "cpu")
-    orig, dirs = _rays(cam, "cpu", 8, 4)
-    state = walk_init(tracer._grid, orig, dirs, opts.t_min)
-    with pytest.raises(ValueError, match="CUDA"):
-        W.grid_walk_cuda(tracer._grid, tracer._table, orig, dirs, state,
-                         opts.t_min)
-
-
 @pytest.fixture(scope="module")
 def cuda_case():
     scene, cam, opts = presets.config4_mesh()
@@ -71,57 +61,13 @@ def cuda_case():
     return tracer, orig, dirs, opts
 
 
-def _kernel_and_plain(tracer, orig, dirs, t_min, max_t=None, active=None):
-    g, table = tracer._grid, tracer._table
-    state = walk_init(g, orig, dirs, t_min, active)
-    before = W.launches
-    got = W.grid_walk_cuda(g, table, orig, dirs, state, t_min, max_t)
-    assert W.launches == before + 1
-    want = W.grid_walk_plain(g, table, orig, dirs, state, t_min, max_t)
-    torch.cuda.synchronize()
-    return [x.cpu() for x in want], [x.cpu() for x in got]
-
-
-@pytest.mark.cuda
-@NEEDS_GPU
-def test_kernel_nearest_matches_plain(cuda_case):
-    tracer, orig, dirs, opts = cuda_case
-    (t0, i0), (t1, i1) = _kernel_and_plain(tracer, orig, dirs, opts.t_min)
-    assert_walks_agree(t0, i0, t1, i1)
-    assert int(torch.isfinite(t0).sum()) > 1000  # scene sanity
-
-
-@pytest.mark.cuda
-@NEEDS_GPU
-def test_kernel_occlusion_matches_plain(cuda_case):
-    tracer, orig, dirs, opts = cuda_case
-    mx = torch.full_like(orig[:, 0], 6.0)
-    (t0, _), (t1, _) = _kernel_and_plain(tracer, orig, dirs, opts.t_min,
-                                         max_t=mx)
-    assert torch.equal(t0 < 6.0, t1 < 6.0)
-
-
-@pytest.mark.cuda
-@NEEDS_GPU
-def test_kernel_active_mask_matches_plain(cuda_case):
-    tracer, orig, dirs, opts = cuda_case
-    gen = torch.Generator().manual_seed(3)
-    act = (torch.rand(orig.shape[0], generator=gen) > 0.5).to("cuda")
-    (t0, i0), (t1, i1) = _kernel_and_plain(tracer, orig, dirs, opts.t_min,
-                                           active=act)
-    assert_walks_agree(t0, i0, t1, i1)
-    off = ~act.cpu()
-    assert bool(torch.isinf(t1[off]).all())
-    assert bool((i1[off] == tracer._grid.n_tris).all())
-
-
 def _walk_rays(tracer, kind, orig, dirs, t_min):
     """"sparse": the case's primaries with 40 scattered lanes active, 20 of
     them rays that hit the mesh; "incoherent": 20,000 rays from random
     points around the grid's box in random directions, all active."""
     rng = np.random.default_rng(11)
     if kind == "sparse":
-        hits = torch.isfinite(W.grid_walk_reference(
+        hits = torch.isfinite(W.grid_walk(
             tracer._grid, tracer._table, orig, dirs, t_min)[0]).cpu().numpy()
         act = np.zeros(orig.shape[0], bool)
         for pool in (np.flatnonzero(hits), np.flatnonzero(~hits)):
@@ -138,65 +84,20 @@ def _walk_rays(tracer, kind, orig, dirs, t_min):
     return cuda(o), cuda(d), None
 
 
-@pytest.mark.cuda
-@NEEDS_GPU
-@pytest.mark.parametrize("kind", ["sparse", "incoherent"])
-@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
-def test_kernel_sparse_and_incoherent_rays_match_plain(cuda_case, kind, mode):
-    """Segments with few walking lanes, and rays whose warps scatter over
-    the grid, in both modes."""
-    tracer, orig, dirs, opts = cuda_case
-    o, d, act = _walk_rays(tracer, kind, orig, dirs, opts.t_min)
-    mx = None
-    if mode == "occlusion":
-        gen = torch.Generator().manual_seed(12)
-        mx = (0.5 + 8.0 * torch.rand(o.shape[0], generator=gen)).to("cuda")
-    (t0, i0), (t1, i1) = _kernel_and_plain(tracer, o, d, opts.t_min, mx, act)
-    if mode == "occlusion":
-        assert torch.equal(t0 < mx.cpu(), t1 < mx.cpu())
-        assert int((t0 < mx.cpu()).sum()) > 0
-    else:
-        assert_walks_agree(t0, i0, t1, i1)
-        assert int(torch.isfinite(t0).sum()) >= (20 if kind == "sparse"
-                                                 else 500)
-    if act is not None:
-        off = ~act.cpu()
-        assert bool(torch.isinf(t1[off]).all())
-        assert bool((i1[off] == tracer._grid.n_tris).all())
-
-
-@pytest.mark.cuda
-@NEEDS_GPU
-def test_kernel_wrapper_rejects_bad_inputs(cuda_case):
-    tracer, orig, dirs, opts = cuda_case
-    g, table = tracer._grid, tracer._table
-    state = walk_init(g, orig, dirs, opts.t_min)
-    with pytest.raises(ValueError, match="contiguous"):
-        W.grid_walk_cuda(g, table, orig, dirs.t().contiguous().t(),
-                         state, opts.t_min)
-    with pytest.raises(ValueError, match="float32"):
-        W.grid_walk_cuda(g, table, orig.double(), dirs, state, opts.t_min)
-    for short in (dataclasses.replace(table, cells=table.cells[:-1]),
-                  dataclasses.replace(table,
-                                      slots=table.slots[:, :10].contiguous())):
-        with pytest.raises(ValueError, match="shape"):
-            W.grid_walk_cuda(g, short, orig, dirs, state, opts.t_min)
-
-
-# --- the walk kernel's fused entry: one launch a GridTracer search ------------
-# held bit for bit to the composition it replaces: the dense sphere and plane
-# search (ops/trace.dense_nearest / dense_occluded), walk_init, the walk from
-# that state (grid_walk_cuda on the card, grid_walk_plain on the CPU) and
-# the merge
+# --- the walk kernel's one entry: one launch a GridTracer search -------------
+# held bit for bit to the plain composition it replaces: the dense sphere
+# and plane search (ops/trace.dense_nearest / dense_occluded), walk_init,
+# the plain walk from that state (grid_walk_plain) and the merge
 
 
 def composed_search(tracer, orig, dirs, t_min, max_t=None, active=None):
-    """What a GridTracer search computes as separate ops → Hit or bool."""
+    """What a GridTracer search computes as separate plain ops, on any
+    device → Hit or bool."""
     sp, pl, g = tracer._base.spheres, tracer._base.planes, tracer._grid
     orig, dirs = orig.contiguous(), dirs.contiguous()
     state = walk_init(g, orig, dirs, t_min, active)
-    walk = W.grid_walk_cuda if orig.device.type == "cuda" else W.grid_walk_plain
-    tb, ib = walk(g, tracer._table, orig, dirs, state, t_min, max_t)
+    tb, ib = W.grid_walk_plain(g, tracer._table, orig, dirs, state, t_min,
+                               max_t)
     if max_t is None:
         base = TR.dense_nearest(orig, dirs, t_min, sp.center, sp.radius,
                                 pl.point, pl.normal)
@@ -319,10 +220,10 @@ def assert_search_equal(got, want):
 
 def fused_and_composed(tracer, orig, dirs, t_min, max_t=None, active=None):
     """The fused launch (one, counted) and the composition on the card."""
-    before = W.search_launches
+    before = W.launches
     got = W.grid_search_cuda(tracer._base, tracer._grid, tracer._table, orig,
                              dirs, t_min, max_t, active)
-    assert W.search_launches == before + 1
+    assert W.launches == before + 1
     want = composed_search(tracer, orig, dirs, t_min, max_t, active)
     torch.cuda.synchronize()
     return got, want
@@ -357,11 +258,11 @@ def test_grid_search_wrapper_rejects_cpu_tensors():
     scene, cam, opts = presets.config4_mesh()
     tracer = GridTracer.build(scene, "cpu")
     orig, dirs = _rays(cam, "cpu", 8, 4)
-    before = (W.launches, W.search_launches)
+    before = W.launches
     with pytest.raises(ValueError, match="CUDA"):
         W.grid_search_cuda(tracer._base, tracer._grid, tracer._table, orig,
                            dirs, opts.t_min)
-    assert (W.launches, W.search_launches) == before
+    assert W.launches == before
 
 
 def brute_force(tracer, scene, orig, dirs, t_min, max_t=None, active=None):
@@ -413,7 +314,7 @@ def test_cpu_grid_searches_are_the_brute_force_winners(case):
     each search's lanes parked besides."""
     scene = small_blob(presets.config4_mesh()[0] if case in (
         "config4", "overflow") else search_scene(case))
-    before = W.search_launches
+    before = W.launches
     tracer, _, searches = frame_searches(
         "cpu", 48, 27, scene=scene,
         capacity=8 if case == "overflow" else None)
@@ -424,7 +325,7 @@ def test_cpu_grid_searches_are_the_brute_force_winners(case):
             got = grid_search(tracer, orig, dirs, t_min, max_t, a)
             assert_search_equal(got, brute_force(tracer, scene, orig, dirs,
                                                  t_min, max_t, a))
-    assert W.search_launches == before  # nothing fused off the card
+    assert W.launches == before  # nothing launched off the card
 
 
 @pytest.mark.parametrize("mode", ["nearest", "occlusion"])
@@ -446,12 +347,21 @@ def test_cpu_grid_searches_outside_the_grid(mode):
         assert int((got.kind == 3).sum()) > 100
 
 
-@pytest.mark.parametrize("case", ["all", "plane_tri", "sphere_tri"])
-def test_cpu_grid_search_exact_t_ties(case):
-    """Exact-t ties between a sphere, a plane and a walked triangle go to
-    the sphere, then the plane, as in the dense search."""
+MESH_TRACERS = {"grid": GridTracer.build, "bvh": BVHTracer.build,
+                "pallas": PT.PallasTracer, "mat": MT.MatTracer.build,
+                "cull": C.CullTracer.build}
+
+
+# the grid's cases keep their ids of before the other tracers joined
+@pytest.mark.parametrize("kind, case", [
+    pytest.param(k, c, id=c if k == "grid" else f"{k}-{c}")
+    for k in MESH_TRACERS for c in ("all", "plane_tri", "sphere_tri")])
+def test_cpu_grid_search_exact_t_ties(kind, case):
+    """Exact-t ties between a sphere, a plane and a searched triangle go
+    to the sphere, then the plane, as in the dense search, whatever the
+    tracer's triangle search."""
     scene, orig, dirs = tie_scene(case)
-    tracer = GridTracer.build(scene, "cpu")
+    tracer = MESH_TRACERS[kind](scene, "cpu")
     got = grid_search(tracer, orig, dirs, 1e-4)
     assert_search_equal(got, brute_force(tracer, scene, orig, dirs, 1e-4))
     assert float(got.t[0]) == 3.0
@@ -611,6 +521,35 @@ def test_grid_search_strided_inputs(mode):
 
 @pytest.mark.cuda
 @NEEDS_GPU
+@pytest.mark.parametrize("kind", ["sparse", "incoherent"])
+@pytest.mark.parametrize("mode", ["nearest", "occlusion"])
+def test_grid_search_sparse_and_incoherent_rays(cuda_case, kind, mode):
+    """Searches with few walking lanes, and rays whose warps scatter over
+    the grid, in both modes, through GridTracer: the plain composition's
+    answer, bit for bit."""
+    tracer, orig, dirs, opts = cuda_case
+    o, d, act = _walk_rays(tracer, kind, orig, dirs, opts.t_min)
+    mx = None
+    if mode == "occlusion":
+        gen = torch.Generator().manual_seed(12)
+        mx = (0.5 + 8.0 * torch.rand(o.shape[0], generator=gen)).to("cuda")
+    before = W.launches
+    got = grid_search(tracer, o, d, opts.t_min, mx, act)
+    assert W.launches == before + 1
+    want = composed_search(tracer, o, d, opts.t_min, mx, act)
+    torch.cuda.synchronize()
+    assert_search_equal(got, want)
+    if mode == "occlusion":
+        assert int(got.sum()) > 0
+        return
+    tri = got.kind == 3
+    assert int(tri.sum()) >= (20 if kind == "sparse" else 500)
+    if act is not None:  # a masked lane never walks
+        assert not bool(tri[~act].any())
+
+
+@pytest.mark.cuda
+@NEEDS_GPU
 def test_grid_search_rejects_bad_inputs(cuda_case):
     """f64 directions or max_t, a mask that is not bool or not [N]: refused
     before any launch."""
@@ -618,7 +557,7 @@ def test_grid_search_rejects_bad_inputs(cuda_case):
     n = orig.shape[0]
     max_t = torch.full((n,), 5.0, device="cuda")
     act = torch.ones(n, dtype=torch.bool, device="cuda")
-    before = (W.launches, W.search_launches)
+    before = W.launches
     for kw, match in ((dict(direc=dirs.double()), "direc"),
                       (dict(max_t=max_t.double()), "max_t"),
                       (dict(active=act.to(torch.uint8)), "active"),
@@ -627,7 +566,7 @@ def test_grid_search_rejects_bad_inputs(cuda_case):
         with pytest.raises(ValueError, match=match):
             W.grid_search_cuda(tracer._base, tracer._grid, tracer._table,
                                **args)
-    assert (W.launches, W.search_launches) == before
+    assert W.launches == before
 
 
 @pytest.mark.cuda
@@ -644,11 +583,11 @@ def test_grid_search_frame_is_the_composition(plan):
     tracer = GridTracer.build(scene, "cuda")
     composed = ComposedGridTracer(tracer)
     kw = dict(device="cuda", count_rays=True, record_plan=plan)
-    before = W.search_launches
+    before = W.launches
     got = render(scene, cam, opts, tracer=tracer, **kw)
-    fused = W.search_launches - before
+    fused = W.launches - before
     want = render(scene, cam, opts, tracer=composed, **kw)
-    assert W.search_launches - before == fused
+    assert W.launches - before == fused
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if plan:

@@ -1,10 +1,11 @@
 """PyTorch port: grid build and the grid DDA walk against the JAX reference.
 
-The plain torch walk (`grid_walk_reference`, what `grid_walk` runs on a CPU
-tensor) is held against the reference's XLA `grid_walk` and its Pallas twin
+The plain torch walk (`grid_walk`, the walk of the CUDA kernel's plain
+twin) is held against the reference's XLA `grid_walk` and its Pallas twin
 `pallas_grid_walk` (interpret mode, as tests/test_pallas_walk.py runs it),
 to the cross-backend standard of `tests.torch_cases.assert_walks_agree`.
-The CUDA kernel is held against the plain walk in tests/test_torch_kernels.py.
+The CUDA kernel is held against the plain composition in
+tests/test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
