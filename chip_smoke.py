@@ -16,6 +16,14 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   render_banded) on config4 at 1920×1080, depth 4, checking that the fused
   entry carried every search, with the frame's K5 time read from the
   profiler. Alone: `kernel_alone()`;
+- the fused shading of a bounce (K6, csrc/bounce_shade.cu), after the
+  main path's frame: each of its bounces through K6 and through the torch
+  bounce from the same state and the same search answers, bit for bit
+  (radiance, ray count, children, plan planes); its surface and shade
+  launches timed whole (`call_times`) beside the bound (bytes / 3.35
+  TB/s) and the torch bounce's time; its launches on the main paths (a
+  render frame, a training step's record) and a frame's device
+  operations. Alone: `shade_alone()`;
 - fused Whitted forward (K1), in its three modes (image: the live nodes
   only; live plan; full plan): the full plan vs the plain version (image
   and plan planes) on config1 256², config2 1920×1080 d2, config3 1024² d4
@@ -213,6 +221,16 @@ K5_OPS = {"sphere": 35, "plane": 15, "init": 80, "candidate": 46, "visit": 3}
 # from memory once
 K5_LANE_BYTES, K5_MASK_BYTES, K5_OCCL_BYTES, K5_NEAREST_BYTES = 24, 1, 5, 12
 K5_SLOT_BYTES, K5_SPHERE_BYTES, K5_PLANE_BYTES, K5_BOX_BYTES = 40, 16, 24, 36
+# K6, the fused shading of a bounce (csrc/bounce_shade.cu), its bytes per
+# lane: the surface launch reads o, d (24), the winner's kind and idx (8)
+# and alive (1), and writes the shadow origin (12), each light's
+# direction, distance and search mask (17) and the diffuse mask (1); the
+# shade launch reads o, d, thr (36), kind, idx (8), alive (1) and each
+# light's shadow bit (1), reads and writes the radiance (24), and writes
+# each child's o, d, thr and alive (37) and the plan planes (8) when
+# recorded; per launch every scene table once
+K6_SURFACE_LANE, K6_SURFACE_LIGHT = 46, 17
+K6_SHADE_LANE, K6_SHADE_LIGHT, K6_CHILD, K6_PLAN = 69, 1, 37, 8
 # brute-force searches, per ray–triangle test: K3 is the walk's
 # Möller–Trumbore (csrc/tri_trace.cu). K4 counts what the function needs,
 # not the kernel's 76 + 6: build_tri_weights leaves 3 of the 10 weight rows
@@ -3609,6 +3627,200 @@ def main_frame(scene, cam, opts, tracer, device):
     return img, traced, dt, launches
 
 
+@contextlib.contextmanager
+def torch_shading():
+    """Every bounce in the block takes the torch bounce (K6's twin)."""
+    from raytracer_tpu_torch.ops import bounce_shade as BS
+
+    real = BS.fused_shading
+    BS.fused_shading = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        BS.fused_shading = real
+
+
+class AnsweringTracer:
+    """A tracer that answers a bounce's searches from recorded results:
+    `nearest` the recorded hit, `occluded` each light's bits in light
+    order. It stands in for the searches where only the shading is
+    timed."""
+
+    def __init__(self, device, hit, shadowed):
+        self.device, self._hit, self._shadowed = device, hit, shadowed
+        self._light = 0
+
+    def nearest(self, *args, **kw):
+        return self._hit
+
+    def occluded(self, *args, **kw):
+        self._light += 1
+        return self._shadowed[self._light - 1]
+
+
+def frame_bounces(scene, cam, opts, tracer, device):
+    """Each bounce of the main path's frame (`render_banded`) → [(device
+    scene, state, n0, is_last, depth, radiance before the bounce, the
+    nearest search's hit, each light's shadow bits)]."""
+    import torch
+
+    from raytracer_tpu_torch import renderer
+
+    answers, bounces = [], []
+
+    class Recording:
+        def __init__(self, inner):
+            self.inner, self.device = inner, inner.device
+
+        def nearest(self, *a, **k):
+            answers.append(self.inner.nearest(*a, **k))
+            return answers[-1]
+
+        def occluded(self, *a, **k):
+            answers.append(self.inner.occluded(*a, **k))
+            return answers[-1]
+
+    real = renderer.bounce_step
+
+    def recording(dscene, state, opts_, n0, is_last, **kw):
+        start, rad = len(answers), kw.get("radiance")
+        rad = None if rad is None else rad.clone()
+        out = real(dscene, state, opts_, n0, is_last, **kw)
+        bounces.append((dscene, state, n0, is_last, kw.get("depth", 0), rad,
+                        answers[start], answers[start + 1:]))
+        return out
+
+    renderer.bounce_step = recording
+    try:
+        renderer.render_banded(scene, cam, opts, device=device,
+                               tracer=Recording(tracer))
+    finally:
+        renderer.bounce_step = real
+    torch.cuda.synchronize()
+    return bounces
+
+
+def k6_bytes(dscene, n: int, children: int, plan: bool) -> tuple:
+    """The bytes K6's two launches need on a bounce of `n` lanes →
+    (surface, shade)."""
+    from raytracer_tpu_torch.ops import bounce_shade as BS
+
+    tables, counts = BS.scene_tables(dscene, dscene.lights.pos.device)
+    once = sum(4 * t.numel() for t in tables if t is not None)
+    nl = counts[3]
+    return (once + n * (K6_SURFACE_LANE + nl * K6_SURFACE_LIGHT),
+            once + n * (K6_SHADE_LANE + nl * K6_SHADE_LIGHT
+                        + children * K6_CHILD + plan * K6_PLAN))
+
+
+def shade_phase(scene, cam, opts, tracer, device) -> dict:
+    """K6 (`ops/bounce_shade`, the fused forward shading of a bounce) on
+    the main path's config4 frame: each bounce through K6 and through the
+    torch bounce from the same state and the same search answers, bit for
+    bit (the radiance, the ray count, the children, the plan planes); each
+    half's device time over the frame's bounces (the profiler, and CUDA
+    events), the torch bounce's, the bound (bytes / 3.35 TB/s); K6's
+    launches on the main paths (a render frame, a training step's record)
+    and the device operations of a frame → the PERF.md row's numbers."""
+    import torch
+
+    from raytracer_tpu_torch import renderer
+    from raytracer_tpu_torch.ops import bounce_shade as BS
+    from raytracer_tpu_torch.renderer import render_banded
+
+    bounces = frame_bounces(scene, cam, opts, tracer, device)
+    calls, plain, nbytes = [], [], 0.0
+    for dscene, state, n0, is_last, depth, rad, hit, shadowed in bounces:
+        def bounce(fused, state=state, n0=n0, is_last=is_last, depth=depth,
+                   rad=rad, hit=hit, shadowed=shadowed, dscene=dscene):
+            radiance, plan = rad.clone(), []
+            answers = AnsweringTracer(device, hit, shadowed)
+            with contextlib.nullcontext() if fused else torch_shading():
+                terms, child, inc = renderer.bounce_step(
+                    dscene, state, opts, n0, is_last, count_rays=True,
+                    tracer=answers, plan_out=plan, depth=depth,
+                    radiance=radiance)
+            for t in terms:
+                radiance = radiance + t
+            return [radiance, inc, *plan[0], *(child or ())]
+
+        got, want = bounce(True), bounce(False)
+        torch.cuda.synchronize()
+        same = len(got) == len(want) and all(
+            torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                        else a, b.view(torch.int32)
+                        if b.dtype == torch.float32 else b)
+            for a, b in zip(got, want))
+        n = state[0].shape[0]
+        print(f"bounce {depth} ({n} lanes, {int(state[3].sum())} alive, "
+              f"last {is_last}): K6 bit-equal to the torch bounce (radiance, "
+              f"ray count, plan planes, children): {same}", flush=True)
+        assert same, f"bounce {depth}: K6 != the torch bounce"
+
+        tables = BS.scene_tables(dscene, device)
+        o = state[0].contiguous()
+        stacked = torch.stack(shadowed)
+        scratch = rad.clone()
+        calls += [
+            lambda o=o, s=state, h=hit, t=tables: BS.surface_cuda(
+                t, o, s[1], s[3], h, opts),
+            lambda o=o, s=state, h=hit, t=tables, b=stacked, last=is_last,
+            r=scratch, g=dscene.has_glass: BS.shade_cuda(
+                t, o, s[1], s[2], s[3], h, b, opts, is_last=last, glass=g,
+                radiance=r)]
+        plain.append(lambda f=bounce: f(False))
+        surf_b, shade_b = k6_bytes(dscene, n, 0 if is_last else 1, False)
+        nbytes += surf_b + shade_b
+    whole = call_times(calls, "shade_")
+    each = whole["each_ms"]
+    plain_ms = cuda_ms(lambda: [f() for f in plain], 3)
+    b_ms, b_by = bound_ms(0.0, nbytes)
+    print(f"K6 over the frame's {len(bounces)} bounces: {fmt_call(whole)}; "
+          f"surface launches {', '.join(f'{x:.4f}' for x in each[0::2])} "
+          f"ms, shade launches {', '.join(f'{x:.4f}' for x in each[1::2])} "
+          f"ms; the torch bounce (searches answered from the record) "
+          f"{plain_ms:.4f} ms by CUDA events; {nbytes:.6g} bytes → bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / whole['kernel_ms']:.1%} of it",
+          flush=True)
+
+    BS.launches = 0
+    render_banded(scene, cam, opts, device=device, tracer=tracer)
+    torch.cuda.synchronize()
+    frame_launches = BS.launches
+    ops = device_intervals(lambda: render_banded(
+        scene, cam, opts, device=device, tracer=tracer), "shade_")
+    kernels = len(ops)
+    dscene, dcam = scene.to(device), cam.to(device)
+    target = render_banded(dscene, dcam, opts, device=device,
+                           tracer=tracer)[0] * 0.9
+    BS.launches = 0
+    renderer.value_and_grad_banded(
+        with_params, {"center": dscene.spheres.center,
+                      "albedo": dscene.materials.albedo}, dscene, dcam, opts,
+        target, device=device, tracer=tracer)
+    torch.cuda.synchronize()
+    step_launches = BS.launches
+    print(f"K6 launches: {frame_launches} a config4 render_banded frame, "
+          f"{step_launches} a value_and_grad_banded step (the plan's "
+          f"record); {kernels} device operations a frame (the profiler)",
+          flush=True)
+    assert frame_launches == 2 * len(bounces), frame_launches
+    assert step_launches > 0, "the training step's record skipped K6"
+    return {"call_ms": whole["kernel_ms"], "events_ms": whole["events_ms"],
+            "each_ms": each, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes,
+            "launches_frame": frame_launches,
+            "launches_step": step_launches, "device_ops_frame": kernels}
+
+
+def shade_alone():
+    """K6's phase on its own (`alone_setup` first)."""
+    scene, cam, opts, tracer, _, _, _, device = alone_setup()
+    print_ptxas(("shade_surface_kernel", "shade_finish_kernel"))
+    print(json.dumps({"k6": shade_phase(scene, cam, opts, tracer, device)}))
+    print(card_line(), flush=True)
+
+
 def alone_setup():
     """What a phase run on its own starts from: the kernel build and the
     main path's config4 frame → (scene, cam, opts, grid tracer, image,
@@ -3730,6 +3942,10 @@ def main() -> int:
     assert tuple(img.shape) == (opts.height, opts.width, 3), img.shape
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+
+    _phase("K6, the fused shading of a bounce, vs the torch bounce on the "
+           "config4 1920x1080 d4 frame")
+    k6 = shade_phase(scene, cam, opts, tracer, device)
 
     _phase("tooling: cli render --tile-block, --trace, --resilient (config4 "
            "1920x1080 d4); cli optimize --kernel --supervise, --resume "
@@ -3964,7 +4180,18 @@ def main() -> int:
         "max_abs_err": cull["err"], "ms": cull["ms"],
         "plain_ms": cull["plain_ms"], "bound_ms": cull["bound_ms"],
         "bound_by": cull["bound_by"], "library_ms": None,
-        "main_paths": cull["launches"]}]}))
+        "main_paths": cull["launches"]}, {
+        "name": "bounce_shade", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/bounce_shade.cu",
+        "replaces": "none (plain torch shading of renderer.bounce_step)",
+        "launches": k6["launches_frame"] + k6["launches_step"],
+        "max_abs_err": 0.0, "ms": k6["call_ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+        "library_ms": None, "main_paths": {
+            "cli render --config config4 (1080p d4 frame)":
+                k6["launches_frame"],
+            "config4 1080p d4 fwd+bwd step (the plan's record)":
+                k6["launches_step"]}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -120,6 +120,9 @@ def load_library() -> ctypes.CDLL:
             + [p] * 5)                    # kind_out, i_out, t_out, occ_out,
                                           # stream
         f = ctypes.c_float
+        lib.rt_bounce_shade.restype = i
+        lib.rt_bounce_shade.argtypes = [i, p, p, p, p]  # half, ptrs, ints,
+                                                        # floats, stream
         lib.rt_fused_whitted.restype = i
         lib.rt_fused_whitted.argtypes = (
             [p] * 7                       # sph, pln, mat, lgt, stat, ids, cam

@@ -17,6 +17,28 @@ from raytracer_tpu_torch.utils.profiling import span
 MAX_PLAN_LIGHTS = 32
 
 
+def check_plan_lights(scene: Scene) -> None:
+    """Raise ValueError unless the scene's lights fit the occlusion
+    bitmask of a recorded plan."""
+    if scene.lights.count > MAX_PLAN_LIGHTS:
+        raise ValueError("the occlusion bitmask packs into int32: at most "
+                         f"{MAX_PLAN_LIGHTS} lights, got "
+                         f"{scene.lights.count}")
+
+
+def shadow_search(scene: Scene, tracer, so, sd, sm, t_min: float,
+                  tri_chunk: int, active):
+    """One light's shadow search (`rt.shadow`, under no_grad): occluded
+    below `sm` along `sd` from `so` → bool [N], by `tracer` or, when it is
+    None, the dense search over `scene`. `active` marks the lanes whose
+    bit the caller keeps."""
+    with torch.no_grad(), span("rt.shadow"):
+        if tracer is None:
+            return trace_ops.occluded(scene, so, sd, sm, t_min, tri_chunk,
+                                      active=active)
+        return tracer.occluded(so, sd, sm, t_min, tri_chunk, active=active)
+
+
 def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
                   tri_chunk: int, tracer=None, active=None,
                   occ_out: list | None = None):
@@ -35,10 +57,7 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
     discards.)
     """
     if occ_out is not None:
-        if scene.lights.count > MAX_PLAN_LIGHTS:
-            raise ValueError("the occlusion bitmask packs into int32: at most "
-                             f"{MAX_PLAN_LIGHTS} lights, got "
-                             f"{scene.lights.count}")
+        check_plan_lights(scene)
         occ_acc = torch.zeros(surf.p.shape[:1], dtype=torch.int32,
                               device=surf.p.device)
     p, n = surf.p, surf.n
@@ -63,14 +82,8 @@ def shade_diffuse(scene: Scene, surf, in_dir, bias: float, t_min: float,
         lit = (ldn > 0).detach()
         oactive = lit if active is None else (active & lit)
         searched.append(oactive)
-        with torch.no_grad(), span("rt.shadow"):
-            so, sd, sm = sorig.detach(), ldir.detach(), dist.detach()
-            if tracer is None:
-                shadowed = trace_ops.occluded(scene, so, sd, sm, t_min,
-                                              tri_chunk, active=oactive)
-            else:
-                shadowed = tracer.occluded(so, sd, sm, t_min, tri_chunk,
-                                           active=oactive)
+        shadowed = shadow_search(scene, tracer, sorig.detach(), ldir.detach(),
+                                 dist.detach(), t_min, tri_chunk, oactive)
         if occ_out is not None:
             occ_acc = occ_acc | (shadowed.to(torch.int32) << li)
         vis = (~shadowed).to(torch.float32)

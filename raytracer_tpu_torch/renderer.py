@@ -56,10 +56,12 @@ from raytracer_tpu_torch.core.types import (DIFFUSE_AND_GLOSSY, KIND_PLANE,
                                             REFLECTION,
                                             REFLECTION_AND_REFRACTION, Camera,
                                             RenderOptions, Scene)
+from raytracer_tpu_torch.ops import bounce_shade as BS
 from raytracer_tpu_torch.ops import geometry as geom
 from raytracer_tpu_torch.ops.dgather import permute_take
 from raytracer_tpu_torch.ops.safemath import clamp01, normalize
-from raytracer_tpu_torch.ops.shade import shade_diffuse
+from raytracer_tpu_torch.ops.shade import (check_plan_lights, shade_diffuse,
+                                           shadow_search)
 from raytracer_tpu_torch.ops.trace import nearest_hit, surface_at
 from raytracer_tpu_torch.utils.profiling import count_lanes, counting, span
 
@@ -137,7 +139,7 @@ def _plan_win(scene: Scene, hit, alive):
 def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
                 is_last: bool, count_rays: bool = False, tracer=None,
                 plan_out: list | None = None, slot=None, n_slots: int = 0,
-                depth: int = 0):
+                depth: int = 0, radiance=None):
     """One wavefront bounce: trace + shade + spawn children.
 
     `state` = (o, d, thr, alive) ray buffers on one device. Returns (terms,
@@ -152,11 +154,19 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     bounce's uncompacted buffer of `n_slots` lanes: terms fold by slot, and
     `new_state` gains a 5th element, the children's slots.
 
+    On a CUDA device a bounce that autograd does not record shades through
+    K6 (`_fused_bounce`), bit for bit what the torch ops below compute.
+    There `radiance` [n0,3], the caller's accumulator, takes the terms in
+    place when the lanes are the pixels (no `slot`, `n0` lanes), and
+    `terms` is then empty.
+
     While a profiler records, the bounce's live search lanes are counted
     under `depth` (utils/profiling.count_lanes).
     """
+    fused = BS.fused_shading(scene, state, radiance)
+    if fused:
+        state = (*(x.contiguous() for x in state[:3]), state[3])
     o, d, thr, alive = state
-    bg = torch.tensor(opts.background, dtype=torch.float32, device=o.device)
     # `active=alive` lets walk-based tracers park dead lanes before step 0
     # instead of walking their zero-normal "reflections"
     with torch.no_grad(), span("rt.search"):
@@ -167,6 +177,11 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
         else:
             hit = tracer.nearest(od, dd, opts.t_min, opts.tri_chunk,
                                  active=alive)
+    if fused:
+        return _fused_bounce(scene, state, hit, opts, n0, is_last,
+                             count_rays, tracer, plan_out, slot, n_slots,
+                             depth, radiance)
+    bg = torch.tensor(opts.background, dtype=torch.float32, device=o.device)
     occ_out = None
     if plan_out is not None:
         win = _plan_win(scene, hit, alive)
@@ -191,16 +206,7 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
         plan_out.append((win, occ_out[0]))
     terms.append(_fold(torch.where(is_diff[:, None], thr * local, 0.0), n0,
                        slot, n_slots))
-    traced_inc = torch.zeros((), dtype=torch.float32, device=o.device)
-    if count_rays or counting():
-        # one sum for both counts: the traced rays (alive lanes, and each
-        # diffuse hit once a light) and each search's live lanes
-        with span("rt.count"):
-            lanes = torch.stack([alive, *searched, is_diff]).sum(dim=1)
-            if count_rays:
-                traced_inc = (lanes[0] + lanes[-1] * scene.lights.count).to(
-                    torch.float32)
-            count_lanes(depth, lanes[:-1], alive.shape[0])
+    traced_inc = _count(scene, alive, searched, is_diff, count_rays, depth)
 
     # specular branches
     is_mirror = valid & (surf.mtype == REFLECTION)
@@ -220,6 +226,62 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     with span("rt.spawn"):
         return _spawn(scene, state, surf, spec, is_glass, kr, terms,
                       traced_inc, opts, slot, n_slots)
+
+
+def _count(scene, alive, searched, is_diff, count_rays, depth):
+    """The bounce's traced rays (0-dim f32; 0 unless `count_rays`) and,
+    while a profiler records, its live search lanes (`count_lanes`)."""
+    traced_inc = torch.zeros((), dtype=torch.float32, device=alive.device)
+    if count_rays or counting():
+        # one sum for both counts: the traced rays (alive lanes, and each
+        # diffuse hit once a light) and each search's live lanes
+        with span("rt.count"):
+            lanes = torch.stack([alive, *searched, is_diff]).sum(dim=1)
+            if count_rays:
+                traced_inc = (lanes[0] + lanes[-1] * scene.lights.count).to(
+                    torch.float32)
+            count_lanes(depth, lanes[:-1], alive.shape[0])
+    return traced_inc
+
+
+def _fused_bounce(scene, state, hit, opts, n0, is_last, count_rays, tracer,
+                  plan_out, slot, n_slots, depth, radiance):
+    """`bounce_step` after its search, through K6 (ops/bounce_shade): the
+    surface and the shadow set-up in one launch, the shadow searches as
+    the torch bounce makes them (one tracer call a light, in light order,
+    the same rays and masks), then the shading, the children and the plan
+    planes in a second launch. Same returns, bit for bit."""
+    o, d, thr, alive = state
+    if plan_out is not None:
+        check_plan_lights(scene)
+    tables = BS.scene_tables(scene, o.device)
+    with span("rt.surface"):
+        sorig, ldir, dist, oactive, is_diff = BS.surface_cuda(
+            tables, o, d, alive, hit, opts)
+    searched = list(oactive)
+    direct = slot is None and o.shape[0] == n0 and radiance is not None
+    with span("rt.shade"):
+        shadowed = [shadow_search(scene, tracer, sorig, ldir[li], dist[li],
+                                  opts.t_min, opts.tri_chunk, searched[li])
+                    for li in range(scene.lights.count)]
+        shadowed = (torch.stack(shadowed) if shadowed else
+                    oactive.new_zeros(oactive.shape))
+        with span("rt.shade.fused"):
+            terms, children, planes = BS.shade_cuda(
+                tables, o, d, thr, alive, hit, shadowed, opts,
+                is_last=is_last, glass=scene.has_glass,
+                radiance=radiance if direct else None,
+                plan=plan_out is not None)
+    if plan_out is not None:
+        plan_out.append(planes)
+    terms = [] if direct else [_fold(t, n0, slot, n_slots) for t in terms]
+    traced_inc = _count(scene, alive, searched, is_diff, count_rays, depth)
+    if is_last:
+        return terms, None, traced_inc
+    if slot is not None:  # child c of slot s: slot s + c·n_slots
+        children += ((torch.cat([slot, slot + n_slots]) if scene.has_glass
+                      else slot),)
+    return terms, children, traced_inc
 
 
 def _spawn(scene, state, surf, spec, is_glass, kr, terms, traced_inc, opts,
@@ -302,7 +364,7 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
             terms, state, inc = bounce_step(
                 scene, state, opts, n0, is_last=depth == opts.max_depth,
                 count_rays=count_rays, tracer=tracer, plan_out=plan,
-                slot=slot, n_slots=n_slots, depth=depth)
+                slot=slot, n_slots=n_slots, depth=depth, radiance=radiance)
             for t in terms:
                 radiance = radiance + t
             traced = traced + inc

@@ -18,7 +18,8 @@ touched. While a profiler records, `count_lanes`
 adds a bounce's live and dispatched search lanes to device-side counts
 (`counters()`); otherwise it does nothing. The names the renderer uses:
 `rt.frame`, `rt.bounce.<d>`, `rt.search`, `rt.shadow`, `rt.surface`,
-`rt.shade`, `rt.spawn`, `rt.count` (the lane sums), `rt.compact`,
+`rt.shade`, `rt.shade.fused` (a bounce's shading launch of K6, once a
+fused bounce), `rt.spawn`, `rt.count` (the lane sums), `rt.compact`,
 `rt.value_and_grad`, `rt.record`, `rt.replay`, `rt.backward`, and across
 cards `rt.view` (a frame's view from rank 0), `rt.band` (a rank's own
 block), `rt.gather` (the image's all-gather), `rt.reduce` (the counts'
