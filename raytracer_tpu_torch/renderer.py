@@ -63,7 +63,8 @@ from raytracer_tpu_torch.ops.safemath import clamp01, normalize
 from raytracer_tpu_torch.ops.shade import (check_plan_lights, shade_diffuse,
                                            shadow_search)
 from raytracer_tpu_torch.ops.trace import nearest_hit, surface_at
-from raytracer_tpu_torch.utils.profiling import count_lanes, counting, span
+from raytracer_tpu_torch.utils.profiling import (count_compaction,
+                                                 count_lanes, counting, span)
 
 _REMAT_POLICIES = ("plan", "full")
 
@@ -87,10 +88,13 @@ def _fold(x, n0, slot=None, n_slots=0):
     slots. Uncompacted (`slot` None) lane i is slot i of a [k·n0] buffer;
     compacted lane i sits at slot `slot[i]` of the `n_slots`-wide
     uncompacted buffer, and is written back there first (slots are unique:
-    no atomics, the same sum in the same order)."""
-    if slot is not None:
-        x = x.new_zeros((n_slots, x.shape[-1])).index_put((slot,), x)
-    return x.reshape(-1, n0, x.shape[-1]).sum(dim=0)
+    no atomics, the same sum in the same order). A fold by slot is the
+    span `rt.fold`."""
+    if slot is None:
+        return x.reshape(-1, n0, x.shape[-1]).sum(dim=0)
+    with span("rt.fold"):
+        return _fold(x.new_zeros((n_slots, x.shape[-1])).index_put((slot,), x),
+                     n0)
 
 
 def partition(alive, cap: int):
@@ -151,7 +155,8 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     plane), each [len(o)] i32.
 
     Compacted wavefronts pass `slot` [len(o)] i32, each lane's slot in this
-    bounce's uncompacted buffer of `n_slots` lanes: terms fold by slot, and
+    bounce's uncompacted buffer of `n_slots` lanes: terms fold by slot
+    (each fold the span `rt.fold`, on the torch and the K6 path alike), and
     `new_state` gains a 5th element, the children's slots.
 
     On a CUDA device a bounce that autograd does not record shades through
@@ -325,7 +330,11 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
 
     Only a buffer's static width decides whether a bounce compacts. The
     first compaction numbers the lanes by their uncompacted slots; before
-    it slot i is lane i.
+    it slot i is lane i. Each compaction is the span `rt.compact`; while a
+    profiler records it also counts, under the depth of the bounce that
+    runs the compacted wavefront, the live lanes kept, the cap and the
+    live lanes dropped (`utils/profiling.count_compaction`), and every
+    later bounce folds its terms by slot (`rt.fold`).
 
     After each bounce that spawns children the loop reads back whether the
     child wavefront (compacted, if the bounce compacted) holds a live lane,
@@ -380,6 +389,7 @@ def render_rays(scene: Scene, orig, direc, opts: RenderOptions,
                                     device=dev)
             with span("rt.compact"):
                 state, slot, drop = _compact(tuple(state), slot, cap)
+                count_compaction(depth + 1, state[3], cap, drop)
             dropped = dropped + drop
         state = tuple(state)
         if read_alive:

@@ -16,10 +16,13 @@ profiler, each span adds its host time to a per-name aggregate
 ran in), so the aggregate holds only host times the profiler has not
 touched. While a profiler records, `count_lanes`
 adds a bounce's live and dispatched search lanes to device-side counts
-(`counters()`); otherwise it does nothing. The names the renderer uses:
+(`counters()`), and `count_compaction` adds each compaction's kept,
+capped and dropped lanes (`compactions()`, kept apart from `counters()`);
+otherwise both do nothing. The names the renderer uses:
 `rt.frame`, `rt.bounce.<d>`, `rt.search`, `rt.shadow`, `rt.surface`,
 `rt.shade`, `rt.shade.fused` (a bounce's shading launch of K6, once a
 fused bounce), `rt.spawn`, `rt.count` (the lane sums), `rt.compact`,
+`rt.fold` (a compacted bounce's fold of one term by slot),
 `rt.value_and_grad`, `rt.record`, `rt.replay`, `rt.backward`, and across
 cards `rt.view` (a frame's view from rank 0), `rt.band` (a rank's own
 block), `rt.gather` (the image's all-gather), `rt.reduce` (the counts'
@@ -44,6 +47,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _SPANS: dict = {}   # name → [count, total ns, first ns]
 _PROFILED = False   # a span has run under a profiler since the last reset
 _LANES: dict = {}   # (depth, lights) → [live lanes [1 + lights], dispatched]
+_COMPACT: dict = {}  # depth → [[kept live, dropped] i64, cap lanes]
 _LOCK = threading.Lock()  # spans end on autograd's threads too
 
 
@@ -132,6 +136,38 @@ def count_lanes(depth: int, live, width: int) -> None:
             c[1] += width
 
 
+def count_compaction(depth: int, kept, cap: int, dropped) -> None:
+    """While a profiler records: add a compaction of the wavefront that
+    bounce `depth` runs to its device-side counts, with no host sync:
+    `kept` [cap] bool marks the kept slots that hold a live lane (min(live,
+    cap) of them), `cap` is the lanes kept, `dropped` (0-dim) the live
+    lanes past the cap. Otherwise nothing: no kernel, no count."""
+    if not counting():
+        return
+    v = torch.stack([kept.sum(), dropped.to(torch.int64)])
+    with _LOCK:
+        c = _COMPACT.get(depth)
+        if c is None:
+            _COMPACT[depth] = [v, cap]
+        else:
+            c[0].add_(v)
+            c[1] += cap
+
+
+def compactions() -> dict:
+    """{`compact.b<d>`: (live lanes kept, cap lanes, live lanes dropped)}
+    counted by `count_compaction` since the last `reset()`, by the depth
+    of the bounce that ran the compacted wavefront; reads the device counts
+    back."""
+    with _LOCK:
+        rows = sorted((d, v, cap) for d, (v, cap) in _COMPACT.items())
+    out = {}
+    for d, v, cap in rows:
+        kept, dropped = v.tolist()
+        out[f"compact.b{d}"] = (kept, cap, dropped)
+    return out
+
+
 def spans() -> dict:
     """{name: {"count", "total_ns", "first_ns"}}: each span's host time
     over every thread from the last `reset()` until a span first ran under
@@ -158,13 +194,14 @@ def counters() -> dict:
 
 
 def reset() -> None:
-    """Clear the span aggregates and the lane counts; the aggregates take
-    spans again."""
+    """Clear the span aggregates, the lane counts and the compaction
+    counts; the aggregates take spans again."""
     global _PROFILED
     _PROFILED = False
     with _LOCK:
         _SPANS.clear()
         _LANES.clear()
+        _COMPACT.clear()
 
 
 def trace_events(trace_dir: str) -> list:
