@@ -24,6 +24,13 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   TB/s) and the torch bounce's time; its launches on the main paths (a
   render frame, a training step's record) and a frame's device
   operations. Alone: `shade_alone()`;
+- the adjoint of a recorded bounce (K7, csrc/bounce_adjoint.cu), the
+  backward of K6's shade launch in a config4 1080p d4 training step: the
+  step's two replayed bounces' K7 calls, as the step made them, timed
+  whole (`call_times`) beside the bound (bytes / 3.35 TB/s), against the
+  plain autograd twin's backward of the torch bounce on the same inputs
+  and cotangents (its gradients held to K7's), its launches a step, and
+  the step both ways by CUDA events. Alone: `adjoint_alone()`;
 - fused Whitted forward (K1), in its three modes (image: the live nodes
   only; live plan; full plan): the full plan vs the plain version (image
   and plan planes) on config1 256², config2 1920×1080 d2, config3 1024² d4
@@ -66,9 +73,7 @@ in parallel) and prints their ptxas register/spill report. Then, per kernel:
   grid walk, then `replay_band_vg` for the sphere centers and material
   albedos against the grid frame × 0.9 — its time split into record and
   replay value-and-grad (CUDA events), walk launches, traced rays and
-  fwd+bwd rays/s, peak memory, the plan's bytes, and the gather backward
-  timed as `pgather`'s one-hot reduce and as `table[idx]`'s `index_put_`;
-  the replay's image against the grid frame, the step against autograd
+  fwd+bwd rays/s, peak memory, the plan's bytes; the replay's image against the grid frame, the step against autograd
   through the wavefront (remat off), and two runs; one step under
   torch.profiler (top ops; in a process of its own); central differences
   at config4 256×144 d4; K1's full plan replayed to K1's image (config2
@@ -231,6 +236,12 @@ K5_SLOT_BYTES, K5_SPHERE_BYTES, K5_PLANE_BYTES, K5_BOX_BYTES = 40, 16, 24, 36
 # recorded; per launch every scene table once
 K6_SURFACE_LANE, K6_SURFACE_LIGHT = 46, 17
 K6_SHADE_LANE, K6_SHADE_LIGHT, K6_CHILD, K6_PLAN = 69, 1, 37, 8
+# K7, the adjoint of a recorded bounce (csrc/bounce_adjoint.cu), its bytes
+# per lane: o, d, thr (36), kind, idx (8), alive (1) and each light's
+# shadow bit (1) read; 12 a cotangent of a term or of the child's o, d or
+# thr read, 12 a cotangent of o, d or thr written; per launch every scene
+# table once and a partial row a block
+K7_LANE, K7_LIGHT, K7_VEC = 45, 1, 12
 # brute-force searches, per ray–triangle test: K3 is the walk's
 # Möller–Trumbore (csrc/tri_trace.cu). K4 counts what the function needs,
 # not the kernel's 76 + 6: build_tri_weights leaves 3 of the 10 weight rows
@@ -1607,7 +1618,6 @@ def waveplan_phase(scene, cam, opts, tracer, frame, device):
     → K5 launches per step."""
     import torch
 
-    from raytracer_tpu_torch.ops import dgather as D
     from raytracer_tpu_torch.ops.replay import replay_render
     from raytracer_tpu_torch.renderer import value_and_grad_banded
 
@@ -1634,19 +1644,8 @@ def waveplan_phase(scene, cam, opts, tracer, frame, device):
                      for x in planes)
     assert k5 > 0, "the training step never launched the walk kernel"
 
-    # where the step's time goes, and the gather backward two ways, in
-    # turns: one-hot reduce (pgather), index_put_ (table[idx]), twice each
+    # where the step's time goes
     rec, vg, rays = step_times(dscene, cam, opts, tracer, target, p0, device)
-    # (one timed vg per turn after a warm-up: the index_put_ form takes
-    # seconds per step)
-    times = {"onehot": [], "index": []}
-    rows = D.SMALL_TABLE_ROWS
-    for mode in ("onehot", "index", "index", "onehot"):
-        D.SMALL_TABLE_ROWS = rows if mode == "onehot" else 0
-        times[mode].append(cuda_ms(lambda: waveplan_vg(
-            p0, dscene, cam, opts, target, plan, device), 1))
-    D.SMALL_TABLE_ROWS = rows
-    gather = {m: sum(v) / len(v) for m, v in times.items()}
     step_ms = rec + vg
     print(f"config4 {opts.width}x{opts.height} d{opts.max_depth} fwd+bwd "
           f"(wavefront-planner replay; center {tuple(p0['center'].shape)}, "
@@ -1657,9 +1656,6 @@ def waveplan_phase(scene, cam, opts, tracer, frame, device):
           f"{rays / (step_ms / 1e3):.6g} fwd+bwd rays/s; peak "
           f"{peak:.1f} MiB; plan {plan_bytes} bytes ({len(plan[0])} "
           f"bounces × 2 planes)", flush=True)
-    print(f"replay vg with the gather backward as a one-hot reduce "
-          f"(pgather) {gather['onehot']:.3f} ms, as table[idx]'s index_put_ "
-          f"{gather['index']:.3f} ms (means of runs {times})", flush=True)
 
     # the replay's image is the grid frame's
     with torch.no_grad():
@@ -3629,15 +3625,16 @@ def main_frame(scene, cam, opts, tracer, device):
 
 @contextlib.contextmanager
 def torch_shading():
-    """Every bounce in the block takes the torch bounce (K6's twin)."""
+    """Every bounce in the block takes the torch bounce (K6's and K7's
+    twin), recorded or not."""
     from raytracer_tpu_torch.ops import bounce_shade as BS
 
-    real = BS.fused_shading
-    BS.fused_shading = lambda *a, **k: False
+    real = BS.fused_shading, BS.adjoint_shading
+    BS.fused_shading = BS.adjoint_shading = lambda *a, **k: False
     try:
         yield
     finally:
-        BS.fused_shading = real
+        BS.fused_shading, BS.adjoint_shading = real
 
 
 class AnsweringTracer:
@@ -3802,7 +3799,8 @@ def shade_phase(scene, cam, opts, tracer, device) -> dict:
     step_launches = BS.launches
     print(f"K6 launches: {frame_launches} a config4 render_banded frame, "
           f"{step_launches} a value_and_grad_banded step (the plan's "
-          f"record); {kernels} device operations a frame (the profiler)",
+          f"record, the replay and its recompute); {kernels} device "
+          f"operations a frame (the profiler)",
           flush=True)
     assert frame_launches == 2 * len(bounces), frame_launches
     assert step_launches > 0, "the training step's record skipped K6"
@@ -3811,6 +3809,150 @@ def shade_phase(scene, cam, opts, tracer, device) -> dict:
             "bound_by": b_by, "bytes": nbytes,
             "launches_frame": frame_launches,
             "launches_step": step_launches, "device_ops_frame": kernels}
+
+
+def k7_bytes(call) -> float:
+    """The bytes one recorded K7 call (`adjoint_phase`'s) needs."""
+    from raytracer_tpu_torch.kernels.build import load_library
+
+    args, kw = call
+    tables, o = args[0], args[1]
+    n, nl = o.shape[0], tables[1][3]
+    vecs = sum(int(g.numel()) // 3 for g in (args[8], *args[9])
+               if g is not None) / max(n, 1)
+    vecs += sum(bool(w) for w in kw["rays"])
+    once = sum(4 * t.numel() for t in tables[0] if t is not None)
+    blocks = load_library().rt_bounce_adjoint_blocks(n)
+    rows = 4 * tables[1][0] + 9 * tables[1][1] + 6 * nl + 7 * int(
+        tables[0][19].shape[0])
+    return once + 4 * blocks * (rows + 1) * 2 + n * (
+        K7_LANE + nl * K7_LIGHT + K7_VEC * vecs)
+
+
+def adjoint_phase(scene, cam, opts, tracer, device) -> dict:
+    """K7 (`ops/bounce_shade.adjoint_cuda`, the adjoint of a recorded
+    bounce) in the config4 1080p d4 training step (`value_and_grad_banded`,
+    the plan replay, centers and albedos): its calls as the step made them
+    (the replay's two bounces), timed whole (the profiler, and CUDA events)
+    beside the bound (bytes / 3.35 TB/s); the plain autograd twin's
+    backward (the torch bounce under torch.autograd, from the same inputs
+    and cotangents) timed by CUDA events, its gradients held to K7's; K7's
+    launches a step; the step through K7 and through the torch bounce, by
+    CUDA events → the PERF.md row's numbers."""
+    import torch
+
+    from raytracer_tpu_torch import renderer
+    from raytracer_tpu_torch.ops import bounce_shade as BS
+
+    dscene, dcam = scene.to(device), cam.to(device)
+    target = renderer.render_banded(dscene, dcam, opts, device=device,
+                                    tracer=tracer)[0] * 0.9
+    p0 = {"center": dscene.spheres.center, "albedo": dscene.materials.albedo}
+
+    def step():
+        return renderer.value_and_grad_banded(
+            with_params, p0, dscene, dcam, opts, target, device=device,
+            tracer=tracer)
+
+    calls, real = [], BS.adjoint_cuda
+
+    def recording(*args, **kw):
+        keep = lambda g: None if g is None else g.detach().clone()
+        calls.append(((*args[:8], keep(args[8]),
+                       tuple(keep(g) for g in args[9])), dict(kw)))
+        return real(*args, **kw)
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    BS.adjoint_launches = 0
+    BS.adjoint_cuda = recording
+    try:
+        step()
+    finally:
+        BS.adjoint_cuda = real
+    torch.cuda.synchronize()
+    launches = BS.adjoint_launches
+    assert launches == 2 * len(calls) and calls, (launches, len(calls))
+
+    thunks = [lambda c=c: real(*c[0], **c[1]) for c in calls]
+    whole = call_times(thunks, "bounce_adjoint_kernel")
+    nbytes = sum(k7_bytes(c) for c in calls)
+    b_ms, b_by = bound_ms(0.0, nbytes)
+
+    # the twin: the torch bounce from the same state and search answers,
+    # its backward under torch.autograd for the same cotangents
+    twins, worst = [], {}
+    for (args, kw) in calls:
+        tables, o, d, thr, alive, hit, shadowed, _, g_terms, g_child = args
+        is_last = kw["is_last"]
+        leaves = {"o": o.detach().clone().requires_grad_(),
+                  "d": d.detach().clone().requires_grad_(),
+                  "thr": thr.detach().clone().requires_grad_(),
+                  "center": dscene.spheres.center.clone().requires_grad_(),
+                  "albedo": dscene.materials.albedo.clone().requires_grad_()}
+        with torch_shading():
+            terms, child, _ = renderer.bounce_step(
+                with_params(dscene, leaves),
+                (leaves["o"], leaves["d"], leaves["thr"], alive), opts,
+                o.shape[0], is_last,
+                tracer=AnsweringTracer(device, hit, list(shadowed)))
+        outs = [torch.stack(terms)] + ([] if is_last else list(child[:3]))
+        pairs = [(x, g) for x, g in zip(outs, (g_terms, *g_child))
+                 if g is not None]
+        wrt = list(leaves.values())
+
+        def twin(pairs=pairs, wrt=wrt):
+            return torch.autograd.grad([x for x, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       retain_graph=True, allow_unused=True)
+
+        want = twin()
+        got_o, got_d, got_thr, vec = real(*args, **kw)
+        ns, nm = dscene.spheres.count, dscene.materials.mtype.shape[0]
+        np_ = dscene.planes.count
+        got = {"o": got_o, "d": got_d, "thr": got_thr,
+               "center": vec[:4 * ns].view(ns, 4)[:, :3],
+               "albedo": vec[4 * ns + 9 * np_:4 * ns + 9 * np_ + 7 * nm]
+               .view(nm, 7)[:, :3]}
+        for k, w in zip(leaves, want):
+            if w is None or got[k] is None:
+                continue
+            err = float((got[k] - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            worst[k] = max(worst.get(k, 0.0), err)
+        twins.append(twin)
+    twin_ms = cuda_ms(lambda: [t() for t in twins], 3)
+    print(f"K7 against the twin's gradients over the step's {len(calls)} "
+          f"bounces: max |Δ| / max |twin| {worst}", flush=True)
+    assert all(v <= 1e-3 for v in worst.values()), worst
+
+    ms_k7 = cuda_ms(step, 3)
+    with torch_shading():
+        ms_torch = cuda_ms(step, 3)
+    each = whole["each_ms"]
+    print(f"K7 over a config4 1080p d4 step's {len(calls)} replayed "
+          f"bounces: {fmt_call(whole)}; adjoint launches "
+          f"{', '.join(f'{x:.4f}' for x in each)} ms; the plain autograd "
+          f"twin's backward (the torch bounce, retained graph) "
+          f"{twin_ms:.4f} ms by CUDA events; {nbytes:.6g} bytes → bound "
+          f"{b_ms:.4f} ms ({b_by}), {b_ms / whole['kernel_ms']:.1%} of it; "
+          f"{launches} K7 launches a step; the step {ms_k7:.3f} ms through "
+          f"K7, {ms_torch:.3f} ms through the torch bounce (CUDA events, "
+          f"mean of 3 after a warm-up)", flush=True)
+    return {"call_ms": whole["kernel_ms"], "device_ms": whole["device_ms"],
+            "events_ms": whole["events_ms"], "each_ms": each,
+            "plain_ms": twin_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "launches_step": launches,
+            "step_ms": ms_k7, "step_torch_ms": ms_torch, "max_rel": worst}
+
+
+def adjoint_alone():
+    """K7's phase on its own (`alone_setup` first)."""
+    scene, cam, opts, tracer, _, _, _, device = alone_setup()
+    print_ptxas(("bounce_adjoint_kernel",))
+    print(json.dumps({"k7": adjoint_phase(scene, cam, opts, tracer,
+                                          device)}))
+    print(card_line(), flush=True)
 
 
 def shade_alone():
@@ -3946,6 +4088,10 @@ def main() -> int:
     _phase("K6, the fused shading of a bounce, vs the torch bounce on the "
            "config4 1920x1080 d4 frame")
     k6 = shade_phase(scene, cam, opts, tracer, device)
+
+    _phase("K7, the adjoint of a recorded bounce, in the config4 1920x1080 "
+           "d4 training step")
+    k7 = adjoint_phase(scene, cam, opts, tracer, device)
 
     _phase("tooling: cli render --tile-block, --trace, --resilient (config4 "
            "1920x1080 d4); cli optimize --kernel --supervise, --resume "
@@ -4190,8 +4336,19 @@ def main() -> int:
         "library_ms": None, "main_paths": {
             "cli render --config config4 (1080p d4 frame)":
                 k6["launches_frame"],
-            "config4 1080p d4 fwd+bwd step (the plan's record)":
-                k6["launches_step"]}}]}))
+            "config4 1080p d4 fwd+bwd step (the plan's record, the "
+            "replay, its recompute)": k6["launches_step"]}}, {
+        "name": "bounce_adjoint", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/bounce_adjoint.cu",
+        "replaces": "none (torch.autograd of the plain torch shading of "
+                    "renderer.bounce_step)",
+        "launches": k7["launches_step"], "max_abs_err": max(
+            k7["max_rel"].values()),
+        "ms": k7["call_ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "library_ms": None, "main_paths": {
+            "config4 1080p d4 fwd+bwd step (the replay's backward)":
+                k7["launches_step"]}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,6 +123,11 @@ def load_library() -> ctypes.CDLL:
         lib.rt_bounce_shade.restype = i
         lib.rt_bounce_shade.argtypes = [i, p, p, p, p]  # half, ptrs, ints,
                                                         # floats, stream
+        lib.rt_bounce_adjoint.restype = i
+        lib.rt_bounce_adjoint.argtypes = [p, p, p, p]  # ptrs, ints, floats,
+                                                       # stream
+        lib.rt_bounce_adjoint_blocks.restype = i
+        lib.rt_bounce_adjoint_blocks.argtypes = [i]    # n
         lib.rt_fused_whitted.restype = i
         lib.rt_fused_whitted.argtypes = (
             [p] * 7                       # sph, pln, mat, lgt, stat, ids, cam

@@ -21,8 +21,7 @@ wavefront (renderer._compact); its backward is a gather by the inverse map
 import torch
 
 # Tables at or below this row count take the one-hot backward; above it the
-# native gather. 0 sends every table to the native gather (chip_smoke.py
-# times the training step both ways).
+# native gather. 0 sends every table to the native gather.
 SMALL_TABLE_ROWS = 64
 
 

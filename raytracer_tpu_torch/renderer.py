@@ -24,13 +24,15 @@ neighbouring lanes of a walk are neighbouring pixels.
 
 Gradients: the winner searches run under `torch.no_grad()` on detached
 rays and return integers; everything else is ordinary torch, so autograd
-differentiates the surface recompute and the shading. A render whose scene
-and camera hold no tensor that requires grad builds no graph. When one does,
-`opts.remat_tiles` recomputes each tile in the backward instead of keeping
-its activations: `remat_policy="plan"` records the tile's plan (the winner
-ids and shadow bits) once under `no_grad` and checkpoints only the shading
-replay of that plan, so the backward never re-runs a search; `"full"`
-checkpoints the whole tile, searches included.
+differentiates the surface recompute and the shading (on a CUDA device a
+recorded glass-free bounce's shading is one autograd Function, K6's
+launch with K7's hand-written adjoint: ops/bounce_shade.shade_recorded).
+A render whose scene and camera hold no tensor that requires grad builds no
+graph. When one does, `opts.remat_tiles` recomputes each tile in the
+backward instead of keeping its activations: `remat_policy="plan"` records
+the tile's plan (the winner ids and shadow bits) once under `no_grad` and
+checkpoints only the shading replay of that plan, so the backward never
+re-runs a search; `"full"` checkpoints the whole tile, searches included.
 
 The bounce loop ends at the first child wavefront with no live lane: after
 each bounce that spawns children it reads one bool back from the device
@@ -163,13 +165,17 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
     K6 (`_fused_bounce`), bit for bit what the torch ops below compute.
     There `radiance` [n0,3], the caller's accumulator, takes the terms in
     place when the lanes are the pixels (no `slot`, `n0` lanes), and
-    `terms` is then empty.
+    `terms` is then empty. A recorded bounce on a glass-free scene whose
+    tensors that require grad K7 covers (`BS.adjoint_shading`) takes the
+    same launches, its shading an autograd Function whose backward is K7;
+    `radiance` is not written there.
 
     While a profiler records, the bounce's live search lanes are counted
     under `depth` (utils/profiling.count_lanes).
     """
     fused = BS.fused_shading(scene, state, radiance)
-    if fused:
+    recorded = not fused and BS.adjoint_shading(scene, state, radiance)
+    if fused or recorded:
         state = (*(x.contiguous() for x in state[:3]), state[3])
     o, d, thr, alive = state
     # `active=alive` lets walk-based tracers park dead lanes before step 0
@@ -182,10 +188,10 @@ def bounce_step(scene: Scene, state, opts: RenderOptions, n0: int,
         else:
             hit = tracer.nearest(od, dd, opts.t_min, opts.tri_chunk,
                                  active=alive)
-    if fused:
+    if fused or recorded:
         return _fused_bounce(scene, state, hit, opts, n0, is_last,
                              count_rays, tracer, plan_out, slot, n_slots,
-                             depth, radiance)
+                             depth, radiance, recorded)
     bg = torch.tensor(opts.background, dtype=torch.float32, device=o.device)
     occ_out = None
     if plan_out is not None:
@@ -250,12 +256,14 @@ def _count(scene, alive, searched, is_diff, count_rays, depth):
 
 
 def _fused_bounce(scene, state, hit, opts, n0, is_last, count_rays, tracer,
-                  plan_out, slot, n_slots, depth, radiance):
+                  plan_out, slot, n_slots, depth, radiance, recorded):
     """`bounce_step` after its search, through K6 (ops/bounce_shade): the
     surface and the shadow set-up in one launch, the shadow searches as
     the torch bounce makes them (one tracer call a light, in light order,
     the same rays and masks), then the shading, the children and the plan
-    planes in a second launch. Same returns, bit for bit."""
+    planes in a second launch. Same returns, bit for bit. A bounce that
+    autograd records (`recorded`) shades through `BS.shade_recorded`,
+    whose backward is K7, and leaves `radiance` alone."""
     o, d, thr, alive = state
     if plan_out is not None:
         check_plan_lights(scene)
@@ -264,7 +272,8 @@ def _fused_bounce(scene, state, hit, opts, n0, is_last, count_rays, tracer,
         sorig, ldir, dist, oactive, is_diff = BS.surface_cuda(
             tables, o, d, alive, hit, opts)
     searched = list(oactive)
-    direct = slot is None and o.shape[0] == n0 and radiance is not None
+    direct = (not recorded and slot is None and o.shape[0] == n0
+              and radiance is not None)
     with span("rt.shade"):
         shadowed = [shadow_search(scene, tracer, sorig, ldir[li], dist[li],
                                   opts.t_min, opts.tri_chunk, searched[li])
@@ -272,11 +281,16 @@ def _fused_bounce(scene, state, hit, opts, n0, is_last, count_rays, tracer,
         shadowed = (torch.stack(shadowed) if shadowed else
                     oactive.new_zeros(oactive.shape))
         with span("rt.shade.fused"):
-            terms, children, planes = BS.shade_cuda(
-                tables, o, d, thr, alive, hit, shadowed, opts,
-                is_last=is_last, glass=scene.has_glass,
-                radiance=radiance if direct else None,
-                plan=plan_out is not None)
+            if recorded:
+                terms, children, planes = BS.shade_recorded(
+                    tables, o, d, thr, alive, hit, shadowed, opts,
+                    is_last=is_last, plan=plan_out is not None)
+            else:
+                terms, children, planes = BS.shade_cuda(
+                    tables, o, d, thr, alive, hit, shadowed, opts,
+                    is_last=is_last, glass=scene.has_glass,
+                    radiance=radiance if direct else None,
+                    plan=plan_out is not None)
     if plan_out is not None:
         plan_out.append(planes)
     terms = [] if direct else [_fold(t, n0, slot, n_slots) for t in terms]

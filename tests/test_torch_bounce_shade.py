@@ -220,7 +220,9 @@ def test_bounces_autograd_records_never_reach_k6(monkeypatch, remat):
     """With the rule's device test taken as passed (so K6 would run where
     autograd records nothing), a differentiable render under grad with a
     leaf that requires grad reaches neither wrapper, forward or backward
-    recompute; the same render under no_grad does (the control)."""
+    recompute (K7's rule keeps its own device test:
+    tests/test_torch_bounce_adjoint.py); the same render under no_grad
+    does (the control)."""
     monkeypatch.setattr(BS, "surface_cuda", _k6_refused)
     monkeypatch.setattr(BS, "shade_cuda", _k6_refused)
     monkeypatch.setattr(BS, "fused_shading", lambda scene, state, r=None:
